@@ -1,0 +1,83 @@
+"""State carried across from the JAX package.
+
+The JAX package holds field elements as ``(18, n)`` uint32 limb arrays,
+points as ``(x, y, inf)`` tuples of such arrays, and a prover fixture as a
+handful of them. These functions take that state as numpy arrays and return
+this package's objects on a chosen device, so that both packages compute on
+the same data. Nothing here imports the JAX package: callers pass
+``numpy.asarray(...)`` of what it holds.
+
+A canonical limb is < 2^15, so the uint32 -> int32 change of dtype keeps
+every bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+from .fields.params import LIMB_BITS, NUM_LIMBS
+from .groups import AffinePoints, JacobianPoints
+from .plonk.prover import Prover
+from .plonk.widgets import ProverArithmeticWidget
+from .srs import ReferenceString
+
+
+def field_tensor(limbs, device=None) -> torch.Tensor:
+    """(18, *batch) uint32 limb array -> int32 field tensor on `device`."""
+    arr = np.ascontiguousarray(np.asarray(limbs))
+    if arr.shape[0] != NUM_LIMBS:
+        raise ValueError(f"expected a leading limb axis of {NUM_LIMBS}, got {arr.shape}")
+    if arr.size and int(arr.max()) >> LIMB_BITS:
+        raise ValueError("limbs are not canonical (a limb is >= 2^15)")
+    return torch.from_numpy(arr.astype(np.int32)).to(resolve_device(device))
+
+
+def field_array(t: torch.Tensor) -> np.ndarray:
+    """Field tensor -> (18, *batch) uint32 numpy array (the JAX layout)."""
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def _mask(inf, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(inf, dtype=bool)).to(resolve_device(device))
+
+
+def affine_points(x, y, inf, device=None) -> AffinePoints:
+    return AffinePoints(field_tensor(x, device), field_tensor(y, device), _mask(inf, device))
+
+
+def jacobian_points(x, y, z, inf, device=None) -> JacobianPoints:
+    return JacobianPoints(
+        field_tensor(x, device), field_tensor(y, device), field_tensor(z, device),
+        _mask(inf, device),
+    )
+
+
+def reference_string(mono_x, mono_y, mono_inf, g2_x, device=None) -> ReferenceString:
+    """A ReferenceString from the monomials' limb arrays and the host G2
+    point [tau]G2 = ((x0, x1), (y0, y1))."""
+    monomials = affine_points(mono_x, mono_y, mono_inf, device)
+    return ReferenceString(monomials, g2_x, monomials.x.shape[1])
+
+
+def prover_from_arrays(
+    n: int, srs: ReferenceString, wires, selectors, sigma_mappings
+) -> Prover:
+    """A whole arithmetic-widget prover fixture on the SRS's device.
+
+    wires: (w_l, w_r, w_o) evaluation-form limb arrays; selectors: (q_m, q_l,
+    q_r, q_o, q_c) limb arrays; sigma_mappings: three uint32 (n,) arrays in
+    the composer encoding."""
+    device = srs.monomials.x.device
+    prover = Prover(n, srs)
+    prover.w_l, prover.w_r, prover.w_o = (field_tensor(w, device) for w in wires)
+    (
+        prover.sigma_1_mapping,
+        prover.sigma_2_mapping,
+        prover.sigma_3_mapping,
+    ) = (np.asarray(m, dtype=np.uint32) for m in sigma_mappings)
+    prover.widgets.append(
+        ProverArithmeticWidget(*(field_tensor(q, device) for q in selectors))
+    )
+    return prover

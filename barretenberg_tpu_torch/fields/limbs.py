@@ -1,0 +1,100 @@
+"""Limb-vector <-> integer conversions for the planar field representation.
+
+A field-element *vector* is a ``uint32`` array of shape ``(NUM_LIMBS, *batch)``
+holding base-2^15 limbs, least-significant limb first ("planar" layout: the
+limb axis leads so neighbouring threads read neighbouring lanes).
+
+The reference stores elements as 4x64-bit little-endian limb structs
+(reference: fields/field.hpp:19-22); helpers here convert both ways so the
+reference test vectors can be used verbatim.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+
+from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS
+
+__all__ = [
+    "int_to_limbs",
+    "limbs_to_int",
+    "ints_to_limbs",
+    "limbs_to_ints",
+    "u64x4_to_int",
+    "int_to_u64x4",
+]
+
+
+def int_to_limbs(value: int) -> np.ndarray:
+    """One integer -> (NUM_LIMBS,) uint32 base-2^15 limbs."""
+    return ints_to_limbs([value])[:, 0]
+
+
+def limbs_to_int(limbs) -> int:
+    """(NUM_LIMBS,) limb array (possibly relaxed/overflowed) -> integer."""
+    arr = np.asarray(limbs, dtype=np.uint64)
+    return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(arr))
+
+
+def ints_to_limbs(values: Sequence[int]) -> np.ndarray:
+    """Batch of integers -> (NUM_LIMBS, N) uint32 limbs (vectorized: the
+    per-element Python limb loop cost minutes at SRS/prover scale)."""
+    n = len(values)
+    if n == 0:
+        return np.empty((NUM_LIMBS, 0), dtype=np.uint32)
+    try:
+        buf = b"".join(int(v).to_bytes(34, "little") for v in values)
+    except OverflowError as e:
+        raise ValueError("value does not fit in 270 bits") from e
+    a = np.frombuffer(buf, dtype=np.uint8).reshape(n, 34)
+    bits = np.unpackbits(a, axis=1, bitorder="little")  # (n, 272)
+    if bits[:, NUM_LIMBS * LIMB_BITS :].any():
+        raise ValueError("value does not fit in 270 bits")
+    weights = (1 << np.arange(LIMB_BITS, dtype=np.uint32)).astype(np.uint32)
+    limbs = (
+        bits[:, : NUM_LIMBS * LIMB_BITS]
+        .reshape(n, NUM_LIMBS, LIMB_BITS)
+        .astype(np.uint32)
+        @ weights
+    )
+    return np.ascontiguousarray(limbs.T.astype(np.uint32))
+
+
+def limbs_to_ints(limbs) -> list[int]:
+    """(NUM_LIMBS, N) limb array -> list of N integers. Canonical 15-bit
+    limbs take a vectorized bit-pack path; relaxed/overflowed limbs fall
+    back to the exact per-element sum."""
+    arr = np.asarray(limbs)
+    arr2 = arr.reshape(NUM_LIMBS, -1)
+    n = arr2.shape[1]
+    if arr2.size and (arr2 < (1 << LIMB_BITS)).all():
+        cols = arr2.T.astype(np.uint32)  # (n, NUM_LIMBS)
+        bits = ((cols[:, :, None] >> np.arange(LIMB_BITS)) & 1).astype(np.uint8)
+        flat = bits.reshape(n, NUM_LIMBS * LIMB_BITS)
+        flat = np.concatenate(
+            [flat, np.zeros((n, 2), dtype=np.uint8)], axis=1
+        )  # pad 270 -> 272 bits
+        packed = np.packbits(flat, axis=1, bitorder="little")  # (n, 34)
+        raw = packed.tobytes()
+        return [
+            int.from_bytes(raw[j * 34 : (j + 1) * 34], "little") for j in range(n)
+        ]
+    arr64 = arr2.astype(np.uint64)
+    return [
+        sum(int(arr64[i, j]) << (LIMB_BITS * i) for i in range(NUM_LIMBS))
+        for j in range(n)
+    ]
+
+
+def u64x4_to_int(limbs64: Iterable[int]) -> int:
+    """Reference-style {d0,d1,d2,d3} little-endian u64 limbs -> integer."""
+    limbs64 = list(limbs64)
+    assert len(limbs64) == 4
+    return sum(int(v) << (64 * i) for i, v in enumerate(limbs64))
+
+
+def int_to_u64x4(value: int) -> tuple[int, int, int, int]:
+    m = (1 << 64) - 1
+    return (value & m, (value >> 64) & m, (value >> 128) & m, (value >> 192) & m)

@@ -1,0 +1,149 @@
+"""Builds and loads the CUDA kernels (csrc/*.cu) at first use.
+
+Each source is compiled by its own ``nvcc`` process into its own shared
+library with a plain C interface (seconds per file, no PyTorch headers),
+all started together, and loaded with ``ctypes``. Libraries land in the
+package's git-ignored ``_build/`` directory and are reused while they are
+newer than every source. A failed build or load raises: there is no path
+that carries on without the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..config import BUILD_DIR
+from ..fields.params import FieldParams, R_INTERNAL
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCES = ("field_kernels", "butterfly", "point_kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict = {}
+_lock = threading.Lock()
+# Seconds the last build took (0.0 when the libraries were already built)
+# and what ptxas reported per source (registers, spills).
+build_seconds: float | None = None
+build_log: dict = {}
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def _so_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = _so_path(name)
+    if not os.path.exists(so):
+        return True
+    deps = [os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(CSRC_DIR, "field.cuh")]
+    return any(os.path.getmtime(d) > os.path.getmtime(so) for d in deps)
+
+
+def build_all(force: bool = False) -> float:
+    """Compile every stale source, one nvcc each, in parallel. Returns the
+    wall seconds spent (0.0 if nothing had to be built)."""
+    global build_seconds
+    with _lock:
+        todo = [s for s in SOURCES if force or _stale(s)]
+        if not todo:
+            if build_seconds is None:
+                build_seconds = 0.0
+            return 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        procs = []
+        for name in todo:
+            tmp = _so_path(name) + f".tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs.append(
+                (name, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            )
+        failed = []
+        for name, tmp, proc in procs:
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}")
+            else:
+                os.replace(tmp, _so_path(name))
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        build_seconds = time.perf_counter() - t0
+        return build_seconds
+
+
+_VP, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+_SIGNATURES = {
+    "field_kernels": {
+        "bb_field_op": [_I, _VP, _L, _L, _VP, _L, _L, _VP, _L, _VP, _VP],
+    },
+    "butterfly": {
+        "bb_butterfly_stage": [_VP, _VP, _L, _L, _VP, _L, _L, _L, _VP, _VP],
+    },
+    "point_kernels": {
+        "bb_point_dbl": [_VP] * 6 + [_L, _VP, _VP],
+        "bb_point_add": [_I] + [_VP] * 12 + [_L, _VP, _VP],
+    },
+}
+
+
+def get_lib(name: str):
+    """The loaded library for one source, building all sources first if any
+    is stale."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(_so_path(name))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+_const_cache: dict = {}
+
+
+def field_consts(params: FieldParams):
+    """The 19 host words a kernel launch takes: modulus, R' mod p and
+    -p^-1 mod 2^30 as 30-bit limbs, derived from the field parameters.
+    Returns the host address; the cache keeps the array alive."""
+    arr = _const_cache.get(params.name)
+    if arr is None:
+        mask = (1 << 30) - 1
+        p, one = params.modulus, R_INTERNAL % params.modulus
+        words = [(p >> (30 * k)) & mask for k in range(9)]
+        words += [(one >> (30 * k)) & mask for k in range(9)]
+        words.append((-pow(p, -1, 1 << 30)) % (1 << 30))
+        arr = np.ascontiguousarray(np.array(words, dtype=np.uint32))
+        _const_cache[params.name] = arr
+    return arr.ctypes.data
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
+
+
+def current_stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Where the device time of one port prove goes.
+
+    python3 tools/profile_torch_prove.py [--log2-n 16] [--top 12]
+
+Runs `Prover.construct_proof` of the PyTorch/CUDA port on the arithmetic-gate
+fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
+one untraced warm-up prove, and prints one JSON line: wall seconds, summed
+device seconds of all kernels, the device's busy share of the wall, and the
+top kernels by device time. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from barretenberg_tpu_torch import convert  # noqa: E402
+from barretenberg_tpu_torch.srs import test_srs  # noqa: E402
+from chip_smoke import fixture_arrays  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2-n", type=int, default=16)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    n = 1 << args.log2_n
+    srs = test_srs(n, device=device)
+    arrays = fixture_arrays(n, 7)
+    convert.prover_from_arrays(n, srs, *arrays).construct_proof()  # warm-up: builds tables
+    prover = convert.prover_from_arrays(n, srs, *arrays)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prover.construct_proof()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    # kernel rows only: an aten op's row repeats the time of the kernels it launched
+    rows = [
+        (e.key, e.count, e.self_device_time_total)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[2])
+    device_s = sum(r[2] for r in rows) / 1e6
+    print(json.dumps({
+        "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
+        "device_seconds": device_s, "device_busy_share": device_s / wall,
+        "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
