@@ -1,0 +1,302 @@
+// Pippenger's bucket phase for every round of one MSM, one launch each.
+//
+// K3a bucket_accumulate: one thread per (round, block of `block` sorted
+// entries) walks its block in bucket order, keeping the running sum in
+// registers: an entry of the current bucket is mixed-added (an entry at
+// infinity leaves the sum as it is, so its arithmetic is skipped), an entry
+// of a new bucket emits (bucket, sum) and restarts the sum from the entry.
+// Emitted partials go straight to their compacted slot: offsets[] holds
+// each block's first slot (the prefix count of the runs of the blocks
+// before it in its round).
+//
+// K3b bucket_reduce: one CTA per round runs, level by level with a CTA
+// barrier between levels, (1) the Kogge-Stone segmented inclusive scan
+// that merges the partials of one bucket, (2) the scatter of each
+// bucket's merged sum to its bucket slot, (3) the inclusive suffix scan
+// over the buckets and (4) the second suffix scan, which is only computed
+// for the lanes that feed lane 0 (the window sum sum_m (m+1) S_m). Every
+// point operation is the one the plain version does on that lane, in the
+// same order, so the coordinates are equal limb for limb.
+//
+// Layouts: planar (18, lanes) 15-bit limb arrays as everywhere in the
+// package, infinity flags one byte per lane; partial slot k of round r is
+// lane r * nslots + k. The level buffers live in device memory (L2) and
+// are read with ld.global.cg, never through the read-only cache, since
+// the same kernel writes them.
+#include <cuda_runtime.h>
+
+#include "point.cuh"
+
+#define ROW_WORDS 20        // one point-table row: x, y (9 x 30-bit each), inf, pad
+#define ACC_THREADS 64
+#define REDUCE_THREADS 256
+
+__device__ __forceinline__ int bucket_of(int d, int nbuckets) {
+    int mag = d < 0 ? -d : d;
+    return mag == 0 ? nbuckets : mag - 1;
+}
+
+__device__ __forceinline__ fe fe_zero() {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = 0;
+    return r;
+}
+
+__device__ __forceinline__ void load_row(const uint4* __restrict__ table, int idx,
+                                         uint32_t (&w)[ROW_WORDS]) {
+    const uint4* row = table + (long)idx * (ROW_WORDS / 4);
+#pragma unroll
+    for (int q = 0; q < ROW_WORDS / 4; ++q) {
+        uint4 t = __ldg(row + q);
+        w[4 * q] = t.x;
+        w[4 * q + 1] = t.y;
+        w[4 * q + 2] = t.z;
+        w[4 * q + 3] = t.w;
+    }
+}
+
+struct Pts {
+    uint32_t* x;
+    uint32_t* y;
+    uint32_t* z;
+    uint8_t* inf;
+};
+
+__device__ __forceinline__ void store_pt(const Pts& p, long lane, long stride, const jpt& v) {
+    fe_store(p.x + lane, stride, v.x);
+    fe_store(p.y + lane, stride, v.y);
+    fe_store(p.z + lane, stride, v.z);
+    p.inf[lane] = v.inf ? 1 : 0;
+}
+
+__device__ __forceinline__ fe fe_load_cg(const uint32_t* base, long limb_stride) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) {
+        uint32_t lo = __ldcg(base + (long)(2 * k) * limb_stride);
+        uint32_t hi = __ldcg(base + (long)(2 * k + 1) * limb_stride);
+        r.v[k] = lo | (hi << 15);
+    }
+    return r;
+}
+
+__device__ __forceinline__ jpt load_pt_cg(const Pts& p, long lane, long stride) {
+    jpt v;
+    v.x = fe_load_cg(p.x + lane, stride);
+    v.y = fe_load_cg(p.y + lane, stride);
+    v.z = fe_load_cg(p.z + lane, stride);
+    v.inf = __ldcg(p.inf + lane) != 0;
+    return v;
+}
+
+// ---------------------------------------------------------------------------
+// K3a
+// ---------------------------------------------------------------------------
+// table: (m, ROW_WORDS) rows. sidx/sdig: (rounds, block, nblocks) entry index
+// and signed digit of sorted position b * block + j of each round (step j
+// of all walks of a round is one contiguous row, so a warp's reads
+// coalesce). offsets: (rounds, nblocks). Outputs (rounds * nslots lanes)
+// arrive filled with bucket nbuckets at infinity (zero coordinates); the
+// kernel overwrites the slots it emits.
+__global__ void __launch_bounds__(ACC_THREADS)
+bucket_accumulate_kernel(const uint4* __restrict__ table, const int* __restrict__ sidx,
+                         const int* __restrict__ sdig, const int* __restrict__ offsets,
+                         int* __restrict__ ocd, Pts out, int rounds, int nblocks, int block,
+                         int nslots, int nbuckets, FieldConst fc) {
+    long walk = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (walk >= (long)rounds * nblocks) return;
+    long r = walk / nblocks;
+    long col = r * block * nblocks + walk % nblocks;  // step j at col + j * nblocks
+    long stride = (long)rounds * nslots;
+    long slot = r * nslots + offsets[walk];
+    const fe one = fe_one(fc);
+
+    jpt acc;
+    acc.x = acc.y = acc.z = fe_zero();
+    acc.inf = true;
+    int d = sdig[col];
+    int cur = bucket_of(d, nbuckets);
+    uint32_t w[ROW_WORDS];
+    load_row(table, sidx[col], w);
+    for (int j = 0; j < block; ++j) {
+        fe x, y;
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) {
+            x.v[k] = w[k];
+            y.v[k] = w[FE_LIMBS + k];
+        }
+        const int dj = d;
+        const bool pinf = w[2 * FE_LIMBS] != 0 || dj == 0;
+        if (j + 1 < block) {  // prefetch the next entry while this one computes
+            long e = col + (long)(j + 1) * nblocks;
+            d = sdig[e];
+            load_row(table, sidx[e], w);
+        }
+        if (dj < 0) y = fe_sub(fe_zero(), y, fc);
+        const int bkt = bucket_of(dj, nbuckets);
+        if (bkt == cur) {
+            if (!pinf) acc = jac_add<true>(acc.x, acc.y, acc.z, acc.inf, x, y, one, false, fc);
+        } else {
+            acc.inf = acc.inf || cur == nbuckets;
+            ocd[slot] = cur;
+            store_pt(out, slot, stride, acc);
+            ++slot;
+            acc.x = x;
+            acc.y = y;
+            acc.z = one;
+            acc.inf = pinf;
+            cur = bkt;
+        }
+    }
+    acc.inf = acc.inf || cur == nbuckets;
+    ocd[slot] = cur;
+    store_pt(out, slot, stride, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K3b
+// ---------------------------------------------------------------------------
+enum { KS = 0, SUFFIX = 1, SUFFIX_LANE0 = 2 };
+
+__device__ __forceinline__ int bit_length(int v) { return v <= 0 ? 0 : 32 - __clz(v); }
+
+// cd: (rounds, nslots) bucket of each partial. in0: the partials. ping/pong:
+// level buffers like in0; bk0/bk1: (18, rounds * nbuckets) bucket buffers.
+// out: (18, rounds) window sums.
+__global__ void __launch_bounds__(REDUCE_THREADS, 1)
+bucket_reduce_kernel(const int* __restrict__ cd, Pts in0, Pts ping, Pts pong, Pts bk0, Pts bk1,
+                     Pts out, int rounds, int nslots, int nbuckets, FieldConst fc) {
+    extern __shared__ uint8_t flags[];  // 2 x nslots segment flags, ping-pong
+    const int r = blockIdx.x;
+    const int* c = cd + (long)r * nslots;
+    const long ps = (long)rounds * nslots, pb = (long)r * nslots;
+    const long bs = (long)rounds * nbuckets, bb = (long)r * nbuckets;
+
+    jpt inf_pt;
+    inf_pt.x = inf_pt.y = inf_pt.z = fe_zero();
+    inf_pt.inf = true;
+    for (int t = threadIdx.x; t < nslots; t += blockDim.x) flags[t] = t == 0 || c[t] != c[t - 1];
+    for (int t = threadIdx.x; t < nbuckets; t += blockDim.x) store_pt(bk0, bb + t, bs, inf_pt);
+    __syncthreads();
+
+    const int ks_levels = max(1, bit_length(nslots - 1));
+    const int sc_levels = max(1, bit_length(nbuckets - 1));
+    const int steps = ks_levels + 1 + 2 * sc_levels;
+    for (int step = 0; step < steps; ++step) {
+        if (step == ks_levels) {
+            // scatter each live bucket's merged sum (its segment's last lane)
+            Pts src = ((ks_levels - 1) & 1) ? pong : ping;
+            for (int t = threadIdx.x; t < nslots; t += blockDim.x) {
+                int b = c[t];
+                bool end = t == nslots - 1 || b != c[t + 1];
+                if (end && b < nbuckets) store_pt(bk0, bb + b, bs, load_pt_cg(src, pb + t, ps));
+            }
+            __syncthreads();
+            continue;
+        }
+        int mode, i, n;
+        Pts src, dst;
+        long base, stride;
+        if (step < ks_levels) {
+            mode = KS;
+            i = step;
+            n = nslots;
+            src = i == 0 ? in0 : ((i & 1) ? ping : pong);
+            dst = (i & 1) ? pong : ping;
+            base = pb;
+            stride = ps;
+        } else if (step < ks_levels + 1 + sc_levels) {
+            mode = SUFFIX;
+            i = step - ks_levels - 1;
+            n = nbuckets;
+            src = (i & 1) ? bk1 : bk0;
+            dst = (i & 1) ? bk0 : bk1;
+            base = bb;
+            stride = bs;
+        } else {  // in place on the first suffix scan's result
+            mode = SUFFIX_LANE0;
+            i = step - ks_levels - 1 - sc_levels;
+            n = nbuckets;
+            src = dst = ((sc_levels - 1) & 1) ? bk0 : bk1;
+            base = bb;
+            stride = bs;
+        }
+        const int d = 1 << i;
+        // level i of the lane-0 scan needs only the multiples of 2d
+        const int work = mode == SUFFIX_LANE0 ? (n + 2 * d - 1) / (2 * d) : n;
+        const uint8_t* fi = flags + (i & 1) * nslots;
+        uint8_t* fo = flags + ((i + 1) & 1) * nslots;
+        for (int t = threadIdx.x; t < work; t += blockDim.x) {
+            int lane, other;
+            bool take;
+            if (mode == KS) {
+                lane = t;
+                other = t - d;
+                take = !fi[t] && t >= d;  // a segment start (or no lane d back) keeps its own sum
+                fo[t] = fi[t] | (t >= d && fi[t - d]);
+            } else {
+                lane = mode == SUFFIX ? t : t * 2 * d;
+                other = lane + d;
+                take = other < n;
+            }
+            jpt p = load_pt_cg(src, base + lane, stride);
+            if (take) {
+                jpt q = load_pt_cg(src, base + other, stride);
+                p = jac_add<false>(p.x, p.y, p.z, p.inf, q.x, q.y, q.z, q.inf, fc);
+            }
+            store_pt(dst, base + lane, stride, p);
+        }
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        Pts fin = ((sc_levels - 1) & 1) ? bk0 : bk1;
+        store_pt(out, r, rounds, load_pt_cg(fin, bb, bs));
+    }
+}
+
+// ---------------------------------------------------------------------------
+extern "C" int bb_bucket_accumulate(const void* table, const void* sidx, const void* sdig,
+                                    const void* offsets, void* ocd, void* ox, void* oy, void* oz,
+                                    void* oinf, int rounds, int nblocks, int block, int nslots,
+                                    int nbuckets, const uint32_t* consts, void* stream) {
+    long walks = (long)rounds * nblocks;
+    if (walks <= 0) return 0;
+    Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
+    const unsigned grid = (unsigned)((walks + ACC_THREADS - 1) / ACC_THREADS);
+    bucket_accumulate_kernel<<<grid, ACC_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint4*)table, (const int*)sidx, (const int*)sdig, (const int*)offsets, (int*)ocd,
+        out, rounds, nblocks, block, nslots, nbuckets, field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+// scratch32: 6 x 18 x rounds x (nslots + nbuckets) words (two level
+// buffers, two bucket buffers); scratch8: 2 x rounds x (nslots + nbuckets)
+// flag bytes.
+extern "C" int bb_bucket_reduce(const void* cd, const void* px, const void* py, const void* pz,
+                                const void* pinf, void* scratch32, void* scratch8, void* ox,
+                                void* oy, void* oz, void* oinf, int rounds, int nslots,
+                                int nbuckets, const uint32_t* consts, void* stream) {
+    if (rounds <= 0) return 0;
+    const long ps = 18L * rounds * nslots, bs = 18L * rounds * nbuckets;
+    uint32_t* w = (uint32_t*)scratch32;
+    uint8_t* f = (uint8_t*)scratch8;
+    Pts in0 = {(uint32_t*)px, (uint32_t*)py, (uint32_t*)pz, (uint8_t*)pinf};
+    Pts ping = {w, w + ps, w + 2 * ps, f};
+    Pts pong = {w + 3 * ps, w + 4 * ps, w + 5 * ps, f + (long)rounds * nslots};
+    uint32_t* wb = w + 6 * ps;
+    uint8_t* fb = f + 2L * rounds * nslots;
+    Pts bk0 = {wb, wb + bs, wb + 2 * bs, fb};
+    Pts bk1 = {wb + 3 * bs, wb + 4 * bs, wb + 5 * bs, fb + (long)rounds * nbuckets};
+    Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
+    const size_t smem = 2 * (size_t)nslots;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(bucket_reduce_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    bucket_reduce_kernel<<<rounds, REDUCE_THREADS, smem, (cudaStream_t)stream>>>(
+        (const int*)cd, in0, ping, pong, bk0, bk1, out, rounds, nslots, nbuckets,
+        field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}

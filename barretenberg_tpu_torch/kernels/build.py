@@ -3,8 +3,9 @@
 Each source is compiled by its own ``nvcc`` process into its own shared
 library with a plain C interface (seconds per file, no PyTorch headers),
 all started together, and loaded with ``ctypes``. Libraries land in the
-package's git-ignored ``_build/`` directory and are reused while they are
-newer than every source. A failed build or load raises: there is no path
+package's git-ignored ``_build/`` directory and are reused while each is
+newer than its source and every header that source includes. A failed
+build or load raises: there is no path
 that carries on without the kernels.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,7 @@ from ..config import BUILD_DIR
 from ..fields.params import FieldParams, R_INTERNAL
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("field_kernels", "butterfly", "point_kernels")
+SOURCES = ("field_kernels", "butterfly", "point_kernels", "msm_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,12 +51,27 @@ def _so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _deps(name: str) -> list[str]:
+    """The source and every header of csrc/ it includes, directly or not."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        with open(os.path.join(CSRC_DIR, f)) as fh:
+            todo.extend(_INCLUDE.findall(fh.read()))
+    return [os.path.join(CSRC_DIR, f) for f in seen]
+
+
 def _stale(name: str) -> bool:
     so = _so_path(name)
     if not os.path.exists(so):
         return True
-    deps = [os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(CSRC_DIR, "field.cuh")]
-    return any(os.path.getmtime(d) > os.path.getmtime(so) for d in deps)
+    return any(os.path.getmtime(d) > os.path.getmtime(so) for d in _deps(name))
 
 
 def build_all(force: bool = False) -> float:
@@ -102,6 +119,10 @@ _SIGNATURES = {
     "point_kernels": {
         "bb_point_dbl": [_VP] * 6 + [_L, _VP, _VP],
         "bb_point_add": [_I] + [_VP] * 12 + [_L, _VP, _VP],
+    },
+    "msm_kernels": {
+        "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
+        "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
     },
 }
 

@@ -1,0 +1,350 @@
+"""K3a ``bucket_accumulate`` and K3b ``bucket_reduce``: the bucket phase of
+Pippenger's MSM for every round at once, one launch each per MSM.
+
+Replace the two scans of the JAX package's per-round Pippenger whose bodies
+are its Pallas point kernel (``kernels/point_kernels.py:179``
+``_kernel_fn``):
+
+- K3a, the block-sequential segment scan of mixed adds
+  (``msm/pippenger.py:178-193``, a ``lax.scan`` over the block's columns)
+  and the argsort compaction of the partial sums it emits (``:214-222``);
+- K3b, the Kogge-Stone merge of those partials (``:82``
+  ``_ks_segmented_scan``), their scatter into bucket slots (``:232-241``)
+  and the two suffix scans (``:107`` ``_suffix_scan_points``) that turn
+  bucket sums S_m into the window sum sum_m (m+1) S_m.
+
+Source: ``csrc/msm_kernels.cu`` (+ ``csrc/point.cuh``, ``csrc/field.cuh``).
+
+What bounds them on the card: operations - a mixed add is 11 field
+multiplications (3,762 32-bit multiply-adds) on 80 bytes of input, an add 16.
+What holds them back is parallelism and dependence: K3a's walks are
+sequential chains of ``block`` dependent mixed adds, one thread each
+(14 rounds x 1024 blocks = 14,336 threads for a 2^16-point MSM), and K3b's
+levels are separated by barriers, one CTA per round. What the design does
+about it: all rounds run in one launch, so every walk of the MSM is in
+flight at once; each walk's sum stays in registers and the next entry's
+point-table row (80 bytes, four 16-byte loads, through the sort permutation)
+is loaded while the current one computes; an entry at infinity or of a
+zero digit costs no arithmetic; emitted partials are written straight to
+their compacted slot; K3b skips the adds whose result its scan discards and
+computes the second suffix scan only for the lanes that feed the window sum.
+
+Every point operation is the plain version's, on the same lanes in the same
+order, so the Jacobian coordinates are equal limb for limb (and to the JAX
+package's, whose sort is stable too). A CUDA batch always launches the
+kernels (or raises); a CPU batch always takes the plain versions below.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..fields.params import FQ_PARAMS, NUM_LIMBS
+from ..groups.group import AffinePoints, JacobianPoints
+from . import build
+from .field_kernels import limb_field
+from .point_kernels import plain_add, plain_mixed_add
+
+L = NUM_LIMBS
+ROW_WORDS = 20  # csrc/msm_kernels.cu: one point-table row
+
+# Kernel launches since the counters were last reset (reset_counts).
+launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0}
+
+
+def reset_counts() -> None:
+    for op in launch_counts:
+        launch_counts[op] = 0
+
+
+class SortedRounds(NamedTuple):
+    """Each round's entries in bucket order; the sort is stable, so the
+    entries of one bucket keep their order (which fixes the Jacobian
+    coordinates of the bucket's sum)."""
+
+    order: torch.Tensor  # (R, M) int64: entry index at each sorted position
+    digit: torch.Tensor  # (R, M) int32: that entry's signed digit
+    bucket: torch.Tensor  # (R, M) int64: |digit| - 1, or nbuckets for 0 (dead)
+
+
+class Partials(NamedTuple):
+    """The bucket partial sums the walks emit, compacted per round: slot k of
+    round r is lane r * K + k. Emitted partials come first, block after block
+    and in walk order; the remaining slots hold bucket ``nbuckets`` at
+    infinity with zero coordinates."""
+
+    bucket: torch.Tensor  # (R, K) int32
+    points: JacobianPoints  # (18, R * K)
+
+
+def sort_rounds(digits: torch.Tensor, nbuckets: int) -> SortedRounds:
+    """digits: (R, M) int32 signed window digits -> every round sorted by
+    bucket in one batched stable sort."""
+    mag = digits.abs().to(torch.int64)
+    bucket = torch.where(mag == 0, nbuckets, mag - 1)
+    order = torch.argsort(bucket, dim=1, stable=True)
+    return SortedRounds(order, digits.gather(1, order), bucket.gather(1, order))
+
+
+def partial_slots(nbuckets: int, nblocks: int, block: int) -> int:
+    """K: a round emits one partial per run of equal buckets in each block,
+    at most nblocks + nbuckets of them."""
+    return min(nbuckets + nblocks, nblocks * (block + 1))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (LimbField arithmetic, any device)
+# ---------------------------------------------------------------------------
+def plain_bucket_accumulate(
+    entries: SortedRounds, px, py, pinf, nbuckets: int, block: int
+) -> Partials:
+    """The block-sequential walk as a loop over the block's columns, every
+    walk of every round one lane: one mixed add per column, then the
+    emitted partials compacted by a stable key sort.
+
+    px, py: (18, M) affine coordinates; pinf: (M,) bool. An entry with a
+    negative digit adds -P; one with digit 0 is dead (at infinity)."""
+    f = limb_field(FQ_PARAMS)
+    rounds, m = entries.order.shape
+    nblocks = m // block
+    lanes = rounds * nblocks
+    k = partial_slots(nbuckets, nblocks, block)
+    dev = px.device
+
+    def cols(t):  # (R, M) sorted -> (block, R * nblocks): column j = step j of every walk
+        return t.reshape(rounds, nblocks, block).permute(2, 0, 1).reshape(block, lanes)
+
+    idx, dig, bkt = cols(entries.order), cols(entries.digit), cols(entries.bucket)
+    x = px[:, idx]
+    y = py[:, idx]
+    y = torch.where((dig < 0).unsqueeze(0), f.neg(y), y)
+    inf = pinf[idx] | (dig == 0)
+    one = f.const_rows(1, x[:, 0])
+    zero = torch.zeros_like(one)
+
+    acc = JacobianPoints(zero, zero, zero, torch.ones(lanes, dtype=torch.bool, device=dev))
+    cur = bkt[0]
+    em_f, em_d, em_p = [], [], []
+    for j in range(block):
+        aff = AffinePoints(x[:, j], y[:, j], inf[j])
+        same = bkt[j] == cur
+        em_f.append(~same)
+        em_d.append(cur)
+        em_p.append(acc)
+        added = plain_mixed_add(acc, aff)
+        acc = JacobianPoints(
+            f.select(same, added.x, aff.x), f.select(same, added.y, aff.y),
+            f.select(same, added.z, one), torch.where(same, added.inf, aff.inf),
+        )
+        cur = bkt[j]
+    em_f.append(torch.ones(lanes, dtype=torch.bool, device=dev))  # each block's last run
+    em_d.append(cur)
+    em_p.append(acc)
+
+    steps = block + 1
+
+    def per_round(ts):  # steps x (..., lanes) -> (..., R, nblocks * steps), block-major
+        t = torch.stack(ts, dim=-1)
+        return t.reshape(t.shape[:-2] + (rounds, nblocks * steps))
+
+    em_f, em_d = per_round(em_f), per_round(em_d)
+    pos = torch.arange(nblocks * steps, device=dev)
+    corder = torch.argsort(torch.where(em_f, pos, pos | (1 << 30)), dim=1, stable=True)[:, :k]
+    emitted = em_f.gather(1, corder)
+    cd = torch.where(emitted, em_d.gather(1, corder), nbuckets)
+
+    def take(coord):
+        t = per_round([getattr(p, coord) for p in em_p])
+        if coord == "inf":
+            return (t.gather(1, corder) | (cd == nbuckets)).reshape(rounds * k)
+        t = t.gather(2, corder.unsqueeze(0).expand(L, -1, -1))
+        return torch.where(emitted, t, 0).reshape(L, rounds * k)
+
+    return Partials(cd.to(torch.int32), JacobianPoints(take("x"), take("y"), take("z"), take("inf")))
+
+
+def _roll(p: JacobianPoints, d: int, dead: torch.Tensor) -> JacobianPoints:
+    """Round-wise lane shift of (18, R, n) points: lane i takes lane i - d;
+    lanes marked `dead` ((n,), no source lane) become infinity."""
+    return JacobianPoints(
+        torch.roll(p.x, d, dims=2), torch.roll(p.y, d, dims=2), torch.roll(p.z, d, dims=2),
+        torch.roll(p.inf, d, dims=1) | dead,
+    )
+
+
+def _select(mask, p: JacobianPoints, q: JacobianPoints) -> JacobianPoints:
+    f = limb_field(FQ_PARAMS)
+    return JacobianPoints(
+        f.select(mask, p.x, q.x), f.select(mask, p.y, q.y), f.select(mask, p.z, q.z),
+        torch.where(mask, p.inf, q.inf),
+    )
+
+
+def _ks_segmented_scan(p: JacobianPoints, starts: torch.Tensor) -> JacobianPoints:
+    """Kogge-Stone inclusive segmented scan of group adds along each round's
+    lanes; starts: (R, n) bool, True at segment starts."""
+    n = starts.shape[1]
+    idx = torch.arange(n, device=starts.device)
+    fl = starts
+    for i in range(max(1, (n - 1).bit_length())):
+        d = 1 << i
+        valid = idx >= d
+        summed = plain_add(p, _roll(p, d, ~valid))
+        p = _select(fl | ~valid, p, summed)  # a segment start (or no lane d back) keeps its own
+        fl = fl | (torch.roll(fl, d, dims=1) & valid)
+    return p
+
+
+def _suffix_scan(p: JacobianPoints) -> JacobianPoints:
+    """Inclusive suffix scan (out[i] = sum_{j >= i} in[j]) along each round."""
+    n = p.inf.shape[1]
+    idx = torch.arange(n, device=p.inf.device)
+    for i in range(max(1, (n - 1).bit_length())):
+        d = 1 << i
+        p = plain_add(p, _roll(p, -d, idx >= n - d))
+    return p
+
+
+def plain_bucket_sums(partials: Partials, nbuckets: int) -> JacobianPoints:
+    """Merge each bucket's partials (segmented scan) and scatter the merged
+    sums to their buckets: (18, R, nbuckets) points, empty buckets at
+    infinity with zero coordinates."""
+    cd = partials.bucket.to(torch.int64)
+    rounds, k = cd.shape
+    pts = partials.points
+    p = JacobianPoints(
+        pts.x.reshape(L, rounds, k), pts.y.reshape(L, rounds, k),
+        pts.z.reshape(L, rounds, k), pts.inf.reshape(rounds, k),
+    )
+    starts = torch.ones_like(cd, dtype=torch.bool)
+    starts[:, 1:] = cd[:, 1:] != cd[:, :-1]
+    merged = _ks_segmented_scan(p, starts)
+    is_end = torch.ones_like(starts)
+    is_end[:, :-1] = cd[:, :-1] != cd[:, 1:]
+    # Only each round's dump slot `nbuckets` can receive more than one write
+    # (which one wins is unspecified on CUDA); it is sliced off below, and
+    # each live bucket has exactly one segment end.
+    live = is_end & (cd < nbuckets)
+    slot = torch.where(live, cd, nbuckets) + torch.arange(rounds, device=cd.device).unsqueeze(1) * (nbuckets + 1)
+    slot = slot.reshape(-1)
+    zeros = torch.zeros((L, rounds * (nbuckets + 1)), dtype=pts.x.dtype, device=cd.device)
+
+    def scatter(t):
+        return zeros.index_copy(1, slot, t.reshape(L, -1)).reshape(L, rounds, nbuckets + 1)[:, :, :nbuckets]
+
+    inf = torch.ones(rounds * (nbuckets + 1), dtype=torch.bool, device=cd.device)
+    inf = inf.index_copy(0, slot, (merged.inf | ~live).reshape(-1)).reshape(rounds, nbuckets + 1)
+    return JacobianPoints(scatter(merged.x), scatter(merged.y), scatter(merged.z), inf[:, :nbuckets])
+
+
+def plain_bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
+    """Each round's window sum sum_m (m+1) S_m from its bucket sums S_m via
+    the double-suffix-scan identity: an (18, R) batch, lane r = round r."""
+    total = _suffix_scan(_suffix_scan(plain_bucket_sums(partials, nbuckets)))
+    return JacobianPoints(total.x[:, :, 0], total.y[:, :, 0], total.z[:, :, 0], total.inf[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+def _check(t: torch.Tensor, shape: tuple, dtype, device) -> torch.Tensor:
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"MSM kernel takes {shape} {dtype} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def point_table(px, py, pinf) -> torch.Tensor:
+    """K3a's point table: one 80-byte row per entry - x and y as 9 x 30-bit
+    words each (two 15-bit limbs per word), the infinity flag, a pad word."""
+    def words(t):
+        return (t[0::2] | (t[1::2] << 15)).t()
+
+    table = torch.zeros((px.shape[1], ROW_WORDS), dtype=torch.int32, device=px.device)
+    table[:, :9] = words(px)
+    table[:, 9:18] = words(py)
+    table[:, 18] = pinf
+    return table
+
+
+def block_offsets(entries: SortedRounds, block: int) -> torch.Tensor:
+    """(R, nblocks) int32: each block's first partial slot in its round, the
+    prefix count of the runs (emitted partials) of the blocks before it."""
+    rounds, m = entries.bucket.shape
+    runs = 1 + (entries.bucket.reshape(rounds, m // block, block).diff(dim=2) != 0).sum(dim=2)
+    return (runs.cumsum(dim=1) - runs).to(torch.int32)
+
+
+def _launch_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
+    dev = px.device
+    if not px.is_cuda:
+        raise ValueError("bucket_accumulate kernel takes CUDA tensors")
+    rounds, m = entries.order.shape
+    nblocks = m // block
+    k = partial_slots(nbuckets, nblocks, block)
+    px, py = _check(px, (L, m), torch.int32, dev), _check(py, (L, m), torch.int32, dev)
+    table = point_table(px, py, _check(pinf, (m,), torch.bool, dev))
+
+    def cols(t):  # (R, M) -> (R, block, nblocks): step j of a round's walks is one row
+        return t.reshape(rounds, nblocks, block).transpose(1, 2).to(torch.int32).contiguous()
+
+    sidx, sdig = cols(entries.order), cols(entries.digit)
+    offsets = block_offsets(entries, block).contiguous()
+    cd = torch.full((rounds, k), nbuckets, dtype=torch.int32, device=dev)
+    ox, oy, oz = (torch.zeros((L, rounds * k), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.ones(rounds * k, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("msm_kernels")
+    with torch.cuda.device(dev):
+        err = lib.bb_bucket_accumulate(
+            table.data_ptr(), sidx.data_ptr(), sdig.data_ptr(), offsets.data_ptr(),
+            cd.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
+            rounds, nblocks, block, k, nbuckets, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "bucket_accumulate")
+    launch_counts["bucket_accumulate"] += 1
+    return Partials(cd, JacobianPoints(ox, oy, oz, oinf.view(torch.bool)))
+
+
+def _launch_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
+    cd = partials.bucket
+    dev = cd.device
+    if not cd.is_cuda:
+        raise ValueError("bucket_reduce kernel takes CUDA tensors")
+    rounds, k = cd.shape
+    cd = _check(cd, (rounds, k), torch.int32, dev)
+    p = partials.points
+    x, y, z = (_check(t, (L, rounds * k), torch.int32, dev) for t in (p.x, p.y, p.z))
+    inf = _check(p.inf, (rounds * k,), torch.bool, dev).view(torch.uint8)
+    scratch32 = torch.empty(6 * L * rounds * (k + nbuckets), dtype=torch.int32, device=dev)
+    scratch8 = torch.empty(2 * rounds * (k + nbuckets), dtype=torch.uint8, device=dev)
+    ox, oy, oz = (torch.empty((L, rounds), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.empty(rounds, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("msm_kernels")
+    with torch.cuda.device(dev):
+        err = lib.bb_bucket_reduce(
+            cd.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
+            scratch32.data_ptr(), scratch8.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
+            rounds, k, nbuckets, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "bucket_reduce")
+    launch_counts["bucket_reduce"] += 1
+    return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+def bucket_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
+    """K3a: every round's block walks -> compacted bucket partials."""
+    if px.is_cuda:
+        return _launch_accumulate(entries, px, py, pinf, nbuckets, block)
+    return plain_bucket_accumulate(entries, px, py, pinf, nbuckets, block)
+
+
+def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
+    """K3b: compacted partials -> each round's window sum, (18, R)."""
+    if partials.bucket.is_cuda:
+        return _launch_reduce(partials, nbuckets)
+    return plain_bucket_reduce(partials, nbuckets)

@@ -2,7 +2,11 @@
 
 Replaces the JAX package's Pallas kernels ``kernels/point_kernels.py``
 ``_kernel_fn`` / ``_dbl_rows`` (public ``dbl``, ``add``, ``mixed_add``).
-Source: ``csrc/point_kernels.cu`` (+ ``csrc/field.cuh``).
+Source: ``csrc/point_kernels.cu`` (+ ``csrc/point.cuh``, the group law it
+shares with the MSM bucket kernels of ``msm_kernels.py``, and
+``csrc/field.cuh``). On the main path these launches now serve the MSM's
+window combine (single lanes) and SRS generation's fixed-base mixed adds;
+the MSM's bucket phase runs in ``msm_kernels.py``.
 
 Each launch computes one point operation per lane - dbl-2009-l,
 add-2007-bl or madd-2007-bl, with lane selects for P == Q (-> doubling),

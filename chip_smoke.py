@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-builds the three CUDA kernels from barretenberg_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card (exact equality:
-every value is a canonical field element), reproduces the pinned n = 16
-proof digest on the card, checks a Pippenger MSM against the host oracle,
-and then drives the main path at n = 2^16 gates: SRS generation, verifier-key
-preprocessing, `Prover.construct_proof`, host `verify_proof`. Each phase
-prints one JSON line and any failing phase exits non-zero. Without a CUDA
-device the script exits non-zero and prints no result.
+builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
+process per source, all at once), holds each against its plain PyTorch
+version on the card (exact equality: every value is a canonical field
+element) - the MSM bucket kernels also on edge rounds against the host
+oracle - reproduces the pinned n = 16 proof digest on the card, checks a
+Pippenger MSM against the host oracle, and then drives the main path at
+n = 2^16 gates: SRS generation, verifier-key preprocessing,
+`Prover.construct_proof`, host `verify_proof`, failing if any kernel was
+never launched there. Each phase prints one JSON line and any failing phase
+exits non-zero. Without a CUDA device the script exits non-zero and prints
+no result.
 
 `--cpu-rehearsal` walks the same control flow at toy sizes on the CPU (plain
 versions only) to find wrong paths and shapes without a card; it never
@@ -35,8 +38,9 @@ from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
 from barretenberg_tpu_torch.fields.params import FQ_PARAMS, FR_MODULUS, FR_PARAMS, R_INTERNAL
 from barretenberg_tpu_torch.groups import AffinePoints, JacobianPoints
 from barretenberg_tpu_torch.groups.g1 import fixed_base_mul, g1 as get_g1, jacobian_to_host, points_to_host
-from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, point_kernels
-from barretenberg_tpu_torch.msm import pippenger
+from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
+from barretenberg_tpu_torch.msm import optimal_window, pippenger
+from barretenberg_tpu_torch.msm.pippenger import glv_entries
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.polynomials import get_domain
 from barretenberg_tpu_torch.srs import test_srs
@@ -59,11 +63,15 @@ ELEM_BYTES = 18 * 4
 POINT_MULS = {"dbl": 7, "add": 16, "mixed_add": 11}
 # coordinate arrays + mask bytes moved per lane (each input once, each output once)
 POINT_BYTES = {"dbl": 6 * ELEM_BYTES, "add": 9 * ELEM_BYTES + 3, "mixed_add": 8 * ELEM_BYTES + 3}
+JAC_BYTES = 3 * ELEM_BYTES + 1  # a Jacobian point with its infinity byte
+MSM_BLOCK = 128  # pippenger's default block
 
 REPLACES = {
     "field": "barretenberg_tpu/kernels/field_kernels.py:64",
     "butterfly": "barretenberg_tpu/kernels/butterfly.py:79",
     "point": "barretenberg_tpu/kernels/point_kernels.py:179",
+    "bucket_accumulate": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:178",
+    "bucket_reduce": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :107",
 }
 
 
@@ -316,18 +324,129 @@ def check_point_kernels(device, lanes_check: int, shapes: dict, rng, records: li
         })
 
 
+def msm_edge_inputs(device, m: int, nbuckets: int, rng):
+    """Four rounds of bucket entries over m points (a multiple of the block):
+    round 0 every digit equal (one bucket spans every block), round 1 every
+    digit zero (every entry dead), round 2 random signed digits with P and
+    -P first in bucket 0 (they cancel), round 3 random with P twice first in
+    bucket 0 (a doubling mid-walk); entries 4-11 are points at infinity."""
+    curve = get_g1(device)
+    pts = curve.batch_normalize(fixed_base_mul(rand_values(m, FR_MODULUS, rng), device))
+    px, py, pinf = pts.x.clone(), pts.y.clone(), pts.inf.clone()
+    px[:, 1], py[:, 1] = px[:, 0], py[:, 0]
+    pinf[4:12] = True
+    digits = torch.from_numpy(rng.integers(-nbuckets, nbuckets + 1, size=(4, m))).to(torch.int32)
+    digits[0], digits[1] = 3, 0
+    digits[2, :2] = torch.tensor([1, -1])
+    digits[3, :2] = 1
+    return digits.to(device), px, py, pinf
+
+
+def accumulate_madds(entries, pinf, nbuckets: int, block: int) -> int:
+    """Mixed adds this input needs: live entries that do not start a run of
+    their bucket within their block."""
+    rounds, m = entries.bucket.shape
+    b = entries.bucket.reshape(rounds, m // block, block)
+    first = torch.ones_like(b, dtype=torch.bool)
+    first[..., 1:] = b[..., 1:] != b[..., :-1]
+    live = (entries.bucket < nbuckets) & ~pinf[entries.order]
+    return int((live & ~first.reshape(rounds, m)).sum())
+
+
+def reduce_adds(cd: torch.Tensor, nbuckets: int) -> int:
+    """Adds this input needs: the segmented scan's lanes that take a sum, the
+    first suffix scan, and the lanes of the second that feed the window."""
+    rounds, k = cd.shape
+    idx = torch.arange(k, device=cd.device)
+    fl = torch.ones_like(cd, dtype=torch.bool)
+    fl[:, 1:] = cd[:, 1:] != cd[:, :-1]
+    adds = 0
+    for i in range(max(1, (k - 1).bit_length())):
+        d = 1 << i
+        adds += int((~fl & (idx >= d)).sum())
+        fl = fl | (torch.roll(fl, d, dims=1) & (idx >= d))
+    for i in range(max(1, (nbuckets - 1).bit_length())):
+        d = 1 << i
+        adds += rounds * (max(0, nbuckets - d) + -(-max(0, nbuckets - d) // (2 * d)))
+    return adds
+
+
+def same(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> None:
+    """K3a and K3b against their plain versions (exact), on edge rounds
+    (also against the host oracle) and at the main path's MSM shape."""
+    c = 10
+    nb = 1 << (c - 1)
+    digits, px, py, pinf = msm_edge_inputs(device, edge_m, nb, rng)
+    entries = msm_kernels.sort_rounds(digits, nb)
+    got = msm_kernels.bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+    want = msm_kernels.plain_bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+    if not (torch.equal(got.bucket, want.bucket) and same(got.points, want.points)):
+        fail("kernels", "bucket_accumulate disagrees with its plain version on the edge rounds")
+    win = msm_kernels.bucket_reduce(got, nb)
+    if not same(win, msm_kernels.plain_bucket_reduce(got, nb)):
+        fail("kernels", "bucket_reduce disagrees with its plain version on the edge rounds")
+    host_pts = points_to_host(AffinePoints(px, py, pinf))
+    oracle = [host_curve.g1_msm(host_pts, [int(d) % FR_MODULUS for d in row]) for row in digits.tolist()]
+    if jacobian_to_host(win) != oracle:
+        fail("kernels", "bucket_reduce window sums disagree with the host oracle on the edge rounds")
+
+    # the main path's shape: one 2^log2n-point MSM, all rounds
+    n = 1 << log2n
+    c = optimal_window(n)
+    nb = 1 << (c - 1)
+    curve, fr = get_g1(device), get_fr(device)
+    pts = curve.batch_normalize(fixed_base_mul(rand_values(n, FR_MODULUS, rng), device))
+    digits, px, py, pinf = glv_entries(fr.encode(rand_values(n, FR_MODULUS, rng)), pts, c, MSM_BLOCK)
+    rounds, m = digits.shape
+    entries = msm_kernels.sort_rounds(digits, nb)
+    got = msm_kernels.bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+    want = msm_kernels.plain_bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+    acc_err = max(int((got.bucket - want.bucket).abs().max()), max_abs_err(got.points, want.points))
+    if acc_err:
+        fail("kernels", f"bucket_accumulate disagrees with its plain version at {rounds} x {m} entries")
+    win = msm_kernels.bucket_reduce(got, nb)
+    red_err = max_abs_err(win, msm_kernels.plain_bucket_reduce(got, nb))
+    if red_err:
+        fail("kernels", f"bucket_reduce disagrees with its plain version at {rounds} rounds")
+    k = got.bucket.shape[1]
+    partial_bytes = rounds * k * (JAC_BYTES + 4)
+    b_ms, b_by = bound(rounds * m * 4 + m * (2 * ELEM_BYTES + 1) + partial_bytes,
+                       accumulate_madds(entries, pinf, nb, MSM_BLOCK) * POINT_MULS["mixed_add"] * IMAD_PER_FIELD_MUL)
+    records.append({
+        "name": "bucket_accumulate", "module": "msm", "op": "bucket_accumulate", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["bucket_accumulate"],
+        "shape": [rounds, m, MSM_BLOCK], "max_abs_err": acc_err,
+        "ms": time_ms(lambda: msm_kernels.bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK), device, 10),
+        "plain_ms": time_ms(lambda: msm_kernels.plain_bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK), device, 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    b_ms, b_by = bound(partial_bytes + rounds * JAC_BYTES,
+                       reduce_adds(got.bucket, nb) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)
+    records.append({
+        "name": "bucket_reduce", "module": "msm", "op": "bucket_reduce", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["bucket_reduce"],
+        "shape": [rounds, k, nb], "max_abs_err": red_err,
+        "ms": time_ms(lambda: msm_kernels.bucket_reduce(got, nb), device, 10),
+        "plain_ms": time_ms(lambda: msm_kernels.plain_bucket_reduce(got, nb), device, 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+
+
 # ---------------------------------------------------------------------------
+COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
+
+
 def reset_counts() -> None:
-    for mod in (field_kernels, butterfly, point_kernels):
+    for mod in COUNTED.values():
         mod.reset_counts()
 
 
 def read_counts() -> dict:
-    return {
-        "field": dict(field_kernels.launch_counts),
-        "butterfly": dict(butterfly.launch_counts),
-        "point": dict(point_kernels.launch_counts),
-    }
+    return {name: dict(mod.launch_counts) for name, mod in COUNTED.items()}
 
 
 def prove_and_verify(n: int, seed: int, device, timings=None):
@@ -381,11 +500,12 @@ def main() -> int:
     wide = 512 if rehearsal else 4 << log2n
     check_field_kernels(device, lanes, wide, rng, records)
     check_butterfly(device, 8 if rehearsal else 16, 6 if rehearsal else log2n + 2, rng, records)
-    # lanes per launch on the main path: the block-sequential bucket phase
-    # walks 2n/128 blocks; the partial merge and bucket scans are ~1.5k / 512
-    # lanes; window combines are single lanes
-    point_shapes = {"dbl": 1, "add": min(lanes, 1536), "mixed_add": min(lanes, max(16, (2 << log2n) // 128))}
+    # lanes per launch on the main path: SRS generation's fixed-base mixed
+    # adds run over all n lanes; the MSM's window combine (the Horner chain)
+    # doubles and adds single lanes
+    point_shapes = {"dbl": 1, "add": 1, "mixed_add": min(lanes, 1 << log2n)}
     check_point_kernels(device, lanes, point_shapes, rng, records)
+    check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
     emit({"phase": "kernels", "ok": True, "lanes_checked": lanes, "kernels": [
         {k: r[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms")} | {"ok": True} for r in records]})
 
@@ -410,32 +530,38 @@ def main() -> int:
     emit({"phase": "msm_oracle", "ok": True, "n": m, "pippenger_seconds": round(t_dev, 3)})
 
     # ---- phase 5: the slice at a real size --------------------------------
+    # the main path is SRS generation + preprocess + prove + verify; the
+    # launch counts cover both windows, so that every kernel must run on it
     n = 1 << log2n
+    reset_counts()
     t0 = time.perf_counter()
     test_srs(n, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     srs_s = time.perf_counter() - t0
+    srs_counts = read_counts()
     timings: dict = {}
     reset_counts()
     t0 = time.perf_counter()
     proof, accepted, tampered_accepted = prove_and_verify(n, args.seed, device, timings)
     total_s = time.perf_counter() - t0
     counts = read_counts()
+    main_counts = {mod: {op: v + srs_counts[mod][op] for op, v in c.items()} for mod, c in counts.items()}
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        idle = [f"{mod}.{op}" for mod, c in counts.items() for op, v in c.items() if v == 0]
+        idle = [f"{mod}.{op}" for mod, c in main_counts.items() for op, v in c.items() if v == 0]
         if idle:
-            fail("prove", f"kernels never launched on the main path: {idle}")
+            fail("prove", f"kernels never launched on the main path (SRS generation + prove): {idle}")
     emit({"phase": "prove", "ok": True, "n": n, "srs_seconds": round(srs_s, 3),
           "prove_seconds": round(sum(timings.values()), 3), "phase_seconds": timings,
           "preprocess_prove_verify_seconds": round(total_s, 3), "launches": counts,
+          "srs_launches": srs_counts,
           "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
 
     # ---- results ----------------------------------------------------------
     for r in records:
-        r["launches"] = counts[r.pop("module")][r.pop("op")]
+        r["launches"] = main_counts[r.pop("module")][r.pop("op")]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": records})
     print(smi, flush=True)

@@ -52,6 +52,21 @@ def test_every_module_imports_without_a_gpu_toolchain():
         importlib.import_module(name)
 
 
+def test_kernel_build_watches_every_source_and_header():
+    """Each CUDA source is built, and rebuilt when it or any header it
+    includes (directly or through another header) changes."""
+    from barretenberg_tpu_torch.kernels import build
+
+    csrc = PACKAGE / "csrc"
+    assert set(build.SOURCES) == {p.stem for p in csrc.glob("*.cu")}
+    assert set(build.SOURCES) == set(build._SIGNATURES)
+    deps = {name: {pathlib.Path(d).name for d in build._deps(name)} for name in build.SOURCES}
+    assert deps["msm_kernels"] == {"msm_kernels.cu", "point.cuh", "field.cuh"}
+    assert deps["point_kernels"] == {"point_kernels.cu", "point.cuh", "field.cuh"}
+    assert deps["field_kernels"] == {"field_kernels.cu", "field.cuh"}
+    assert set().union(*deps.values()) == {p.name for p in csrc.glob("*.cu*")}
+
+
 def test_package_import_pulls_in_no_jax():
     code = (
         "import sys, pkgutil, importlib, barretenberg_tpu_torch as p\n"

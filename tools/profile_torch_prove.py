@@ -6,7 +6,8 @@
 Runs `Prover.construct_proof` of the PyTorch/CUDA port on the arithmetic-gate
 fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
 one untraced warm-up prove, and prints one JSON line: wall seconds, summed
-device seconds of all kernels, the device's busy share of the wall, and the
+device seconds of all kernels, the device's busy share of the wall, the
+number of device operations (kernels and copies) the prove issued, and the
 top kernels by device time. Needs one CUDA device.
 """
 
@@ -60,6 +61,7 @@ def main() -> int:
     print(json.dumps({
         "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
         "device_seconds": device_s, "device_busy_share": device_s / wall,
+        "device_ops": sum(r[1] for r in rows),
         "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
     }))
     return 0
