@@ -18,6 +18,11 @@
 // point operation is the one the plain version does on that lane, in the
 // same order, so the coordinates are equal limb for limb.
 //
+// K3c window_combine: the Horner combine of the rounds' window sums,
+// most significant first - c doublings of the running sum, then one add of
+// the next window - on one thread, in one launch. The chain is serial, and
+// any other grouping of the sums would change the Jacobian coordinates.
+//
 // Layouts: planar (18, lanes) 15-bit limb arrays as everywhere in the
 // package, infinity flags one byte per lane; partial slot k of round r is
 // lane r * nslots + k. The level buffers live in device memory (L2) and
@@ -256,6 +261,38 @@ bucket_reduce_kernel(const int* __restrict__ cd, Pts in0, Pts ping, Pts pong, Pt
 }
 
 // ---------------------------------------------------------------------------
+// K3c
+// ---------------------------------------------------------------------------
+// win: (18, rounds) window sums (lane r = round r), as K3b writes them.
+// out: one point, which also holds the running sum between rounds: a round
+// loads it, doubles it c times in registers, adds its window and stores it
+// back. (With the sum carried in registers across rounds, cicc of CUDA 12.9
+// crashes on this kernel.) The sum starts at infinity with zero
+// coordinates; a doubling leaves the infinity flag as it is and doubles the
+// coordinates, as the lane-wise point_dbl kernel does.
+__global__ void __launch_bounds__(1)
+window_combine_kernel(Pts win, int rounds, int c, Pts out, FieldConst fc) {
+    jpt acc;
+    acc.x = acc.y = acc.z = fe_zero();
+    acc.inf = true;
+    store_pt(out, 0, 1, acc);
+#pragma unroll 1
+    for (int r = rounds - 1; r >= 0; --r) {
+        jpt p = load_pt_cg(out, 0, 1);
+#pragma unroll 1
+        for (int k = 0; k < c; ++k) {
+            jac d = jac_dbl(p.x, p.y, p.z, fc);
+            p.x = d.x;
+            p.y = d.y;
+            p.z = d.z;
+        }
+        jpt w = load_pt_cg(win, r, rounds);
+        p = jac_add<false>(p.x, p.y, p.z, p.inf, w.x, w.y, w.z, w.inf, fc);
+        store_pt(out, 0, 1, p);
+    }
+}
+
+// ---------------------------------------------------------------------------
 extern "C" int bb_bucket_accumulate(const void* table, const void* sidx, const void* sdig,
                                     const void* offsets, void* ocd, void* ox, void* oy, void* oz,
                                     void* oinf, int rounds, int nblocks, int block, int nslots,
@@ -298,5 +335,16 @@ extern "C" int bb_bucket_reduce(const void* cd, const void* px, const void* py, 
     bucket_reduce_kernel<<<rounds, REDUCE_THREADS, smem, (cudaStream_t)stream>>>(
         (const int*)cd, in0, ping, pong, bk0, bk1, out, rounds, nslots, nbuckets,
         field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bb_window_combine(const void* wx, const void* wy, const void* wz, const void* winf,
+                                 void* ox, void* oy, void* oz, void* oinf, int rounds, int c,
+                                 const uint32_t* consts, void* stream) {
+    if (rounds <= 0 || c < 0) return (int)cudaErrorInvalidValue;
+    Pts win = {(uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, (uint8_t*)winf};
+    Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
+    window_combine_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(win, rounds, c, out,
+                                                             field_const_from_host(consts));
     return (int)cudaGetLastError();
 }

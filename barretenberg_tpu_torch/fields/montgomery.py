@@ -9,11 +9,11 @@ form with R = 2^256; internally R' = 2^270, and ``u -> u * 2^14 mod p``
 converts between them homomorphically (params.py).
 
 A ``Field`` holds its constant tensors on one explicit device. Arithmetic
-goes through the four ops of kernels/field_kernels.py - ``mul``, ``sqr``,
-``add``, ``sub`` - which launch the CUDA kernel for a CUDA tensor and run
-the plain PyTorch version for a CPU tensor; ``neg``, ``double``,
-``mul_by_constant`` and every broadcast product are expressed through those
-four, so no field arithmetic on the card runs as a chain of eager limb ops.
+goes through the ops of kernels/field_kernels.py - ``mul``, ``sqr``,
+``add``, ``sub`` and ``pow`` - which launch the CUDA kernel for a CUDA tensor
+and run the plain PyTorch version for a CPU tensor; ``neg``, ``double``,
+``mul_by_constant`` and every broadcast product are expressed through those,
+so no field arithmetic on the card runs as a chain of eager limb ops.
 """
 
 from __future__ import annotations
@@ -160,17 +160,9 @@ class Field:
     # ------------------------------------------------------------------
     def pow_static(self, a, exponent: int):
         """a^exponent for a host-known integer exponent: square & multiply
-        over the exponent bits, MSB first, as a Python loop of kernel
-        launches. 0^e = 0 for e > 0."""
-        if exponent == 0:
-            return self.full(a.shape[1:], self.one)
-        nbits = exponent.bit_length()
-        acc = a  # first bit is always 1
-        for i in range(1, nbits):
-            acc = self.sqr(acc)
-            if (exponent >> (nbits - 1 - i)) & 1:
-                acc = self.mont_mul(acc, a)
-        return acc
+        over the exponent bits, MSB first - one launch of K1's ``pow`` on the
+        card, its plain version on the CPU. a^0 = one; 0^e = 0 for e > 0."""
+        return field_kernels.pow_static(self.params, a, exponent)
 
     def invert(self, a):
         """Fermat inversion a^(p-2); maps 0 -> 0 (reference pow semantics)."""

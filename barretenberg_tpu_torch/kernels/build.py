@@ -112,6 +112,7 @@ _VP, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 _SIGNATURES = {
     "field_kernels": {
         "bb_field_op": [_I, _VP, _L, _L, _VP, _L, _L, _VP, _L, _VP, _VP],
+        "bb_field_pow": [_VP, _L, _L, _VP, _L, _VP, _I, _VP, _VP],
     },
     "butterfly": {
         "bb_butterfly_stage": [_VP, _VP, _L, _L, _VP, _L, _L, _L, _VP, _VP],
@@ -123,6 +124,7 @@ _SIGNATURES = {
     "msm_kernels": {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
+        "bb_window_combine": [_VP] * 8 + [_I, _I, _VP, _VP],
     },
 }
 

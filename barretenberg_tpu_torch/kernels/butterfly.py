@@ -30,12 +30,15 @@ from .field_kernels import limb_field
 
 L = NUM_LIMBS
 
-# Kernel launches since the counters were last reset (reset_counts).
+# Kernel launches since the counters were last reset (reset_counts), and how
+# many of them ran one butterfly.
 launch_counts = {"stage": 0}
+single_lane_counts = {"stage": 0}
 
 
 def reset_counts() -> None:
     launch_counts["stage"] = 0
+    single_lane_counts["stage"] = 0
 
 
 def plain(params: FieldParams, x5: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
@@ -65,6 +68,8 @@ def _launch(params: FieldParams, x5: torch.Tensor, tw: torch.Tensor) -> torch.Te
         )
     build.check(err, "butterfly_stage")
     launch_counts["stage"] += 1
+    if g * h * nb == 1:
+        single_lane_counts["stage"] += 1
     return out
 
 

@@ -1,5 +1,7 @@
 """K3a ``bucket_accumulate`` and K3b ``bucket_reduce``: the bucket phase of
-Pippenger's MSM for every round at once, one launch each per MSM.
+Pippenger's MSM for every round at once, one launch each per MSM; K3c
+``window_combine``: the Horner combine of the rounds' window sums, one
+launch per MSM.
 
 Replace the two scans of the JAX package's per-round Pippenger whose bodies
 are its Pallas point kernel (``kernels/point_kernels.py:179``
@@ -11,7 +13,10 @@ are its Pallas point kernel (``kernels/point_kernels.py:179``
 - K3b, the Kogge-Stone merge of those partials (``:82``
   ``_ks_segmented_scan``), their scatter into bucket slots (``:232-241``)
   and the two suffix scans (``:107`` ``_suffix_scan_points``) that turn
-  bucket sums S_m into the window sum sum_m (m+1) S_m.
+  bucket sums S_m into the window sum sum_m (m+1) S_m;
+- K3c, the Horner ``fori_loop`` over the rounds (``:287-305``): c point
+  doublings of the running sum and one add of the round's window per round,
+  most significant round first.
 
 Source: ``csrc/msm_kernels.cu`` (+ ``csrc/point.cuh``, ``csrc/field.cuh``).
 
@@ -29,6 +34,15 @@ zero digit costs no arithmetic; emitted partials are written straight to
 their compacted slot; K3b skips the adds whose result its scan discards and
 computes the second suffix scan only for the lanes that feed the window sum.
 
+K3c is bound by neither bytes nor instruction rate: its 140 doublings and 14 adds
+(c = 10, 14 rounds) are one dependent chain of ~1,200 Montgomery products,
+and grouping the sums any other way would change the Jacobian coordinates.
+What the design does about it: one thread runs the whole chain - each
+round's doublings and add in registers, the running sum stored and reloaded
+once per round - so the MSM's combine is one launch where it was c + 1
+single-lane launches per round (154 host round trips at 2^16 points); its
+device time stays that of the chain.
+
 Every point operation is the plain version's, on the same lanes in the same
 order, so the Jacobian coordinates are equal limb for limb (and to the JAX
 package's, whose sort is stable too). A CUDA batch always launches the
@@ -45,13 +59,13 @@ from ..fields.params import FQ_PARAMS, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
-from .point_kernels import plain_add, plain_mixed_add
+from .point_kernels import plain_add, plain_dbl, plain_mixed_add
 
 L = NUM_LIMBS
 ROW_WORDS = 20  # csrc/msm_kernels.cu: one point-table row
 
 # Kernel launches since the counters were last reset (reset_counts).
-launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0}
+launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "window_combine": 0}
 
 
 def reset_counts() -> None:
@@ -246,6 +260,21 @@ def plain_bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(total.x[:, :, 0], total.y[:, :, 0], total.z[:, :, 0], total.inf[:, 0])
 
 
+def plain_window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
+    """sum_r 2^(c r) W_r by Horner's rule, most significant window first: c
+    doublings then one add per round, starting from infinity with zero
+    coordinates. windows: (18, R) batch, lane r = round r. Returns (1,)."""
+    rounds, dev = windows.inf.shape[0], windows.x.device
+    zero = torch.zeros((L, 1), dtype=torch.int32, device=dev)
+    acc = JacobianPoints(zero, zero, zero, torch.ones(1, dtype=torch.bool, device=dev))
+    for r in reversed(range(rounds)):
+        for _ in range(c):
+            acc = plain_dbl(acc)
+        win = JacobianPoints(*(t[..., r : r + 1] for t in windows))
+        acc = plain_add(acc, win)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -333,6 +362,27 @@ def _launch_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
+def _launch_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
+    dev = windows.x.device
+    if not windows.x.is_cuda:
+        raise ValueError("window_combine kernel takes CUDA tensors")
+    rounds = windows.inf.shape[0]
+    x, y, z = (_check(t, (L, rounds), torch.int32, dev) for t in windows[:3])
+    inf = _check(windows.inf, (rounds,), torch.bool, dev).view(torch.uint8)
+    ox, oy, oz = (torch.empty((L, 1), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.empty(1, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("msm_kernels")
+    with torch.cuda.device(dev):
+        err = lib.bb_window_combine(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
+            rounds, c, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "window_combine")
+    launch_counts["window_combine"] += 1
+    return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
@@ -348,3 +398,10 @@ def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     if partials.bucket.is_cuda:
         return _launch_reduce(partials, nbuckets)
     return plain_bucket_reduce(partials, nbuckets)
+
+
+def window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
+    """K3c: the rounds' window sums (18, R) -> the MSM, sum_r 2^(c r) W_r, (1,)."""
+    if windows.x.is_cuda:
+        return _launch_combine(windows, c)
+    return plain_window_combine(windows, c)

@@ -4,9 +4,10 @@ Replaces the JAX package's Pallas kernels ``kernels/point_kernels.py``
 ``_kernel_fn`` / ``_dbl_rows`` (public ``dbl``, ``add``, ``mixed_add``).
 Source: ``csrc/point_kernels.cu`` (+ ``csrc/point.cuh``, the group law it
 shares with the MSM bucket kernels of ``msm_kernels.py``, and
-``csrc/field.cuh``). On the main path these launches now serve the MSM's
-window combine (single lanes) and SRS generation's fixed-base mixed adds;
-the MSM's bucket phase runs in ``msm_kernels.py``.
+``csrc/field.cuh``). On the main path these launches now serve SRS
+generation's fixed-base mixed adds and the small-MSM path
+(``msm/naive.py``: double-and-add over all lanes, then a tree sum); the
+Pippenger MSM's bucket phase and window combine run in ``msm_kernels.py``.
 
 Each launch computes one point operation per lane - dbl-2009-l,
 add-2007-bl or madd-2007-bl, with lane selects for P == Q (-> doubling),
@@ -38,13 +39,22 @@ from .field_kernels import limb_field
 
 L = NUM_LIMBS
 
-# Kernel launches per op since the counters were last reset (reset_counts).
+# Kernel launches per op since the counters were last reset (reset_counts),
+# and how many of them ran one lane.
 launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0}
+single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
 def reset_counts() -> None:
-    for op in launch_counts:
-        launch_counts[op] = 0
+    for counts in (launch_counts, single_lane_counts):
+        for op in counts:
+            counts[op] = 0
+
+
+def _count(op: str, lanes: int) -> None:
+    launch_counts[op] += 1
+    if lanes == 1:
+        single_lane_counts[op] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +171,7 @@ def _launch_dbl(p: JacobianPoints) -> JacobianPoints:
             n, build.field_consts(FQ_PARAMS), build.current_stream(),
         )
     build.check(err, "point_dbl")
-    launch_counts["dbl"] += 1
+    _count("dbl", n)
     return JacobianPoints(ox, oy, oz, p.inf)
 
 
@@ -184,7 +194,7 @@ def _launch_add(p: JacobianPoints, q, mixed: bool) -> JacobianPoints:
         )
     op = "mixed_add" if mixed else "add"
     build.check(err, f"point_{op}")
-    launch_counts[op] += 1
+    _count(op, n)
     return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
 
 

@@ -20,8 +20,8 @@ lanes and no scatter-accumulate:
        with a Kogge-Stone segmented scan (log depth), scatters the bucket
        sums S_m and turns them into the window sum sum_m (m+1) S_m with
        two suffix scans;
-  4. windows combine MSB-first with c doublings per round (the Horner
-     chain, one point launch per step).
+  4. K3c window_combine: the windows combine MSB-first, c doublings and
+     one add per round (the Horner chain), on one thread in one launch.
 
 The rounds are independent until step 4, so batching them changes no
 coordinate: each round's window is the JAX package's per-round
@@ -38,7 +38,6 @@ import torch.nn.functional as F
 
 from ..fields import fq as _fq, fr as _fr
 from ..groups import AffinePoints, JacobianPoints
-from ..groups.g1 import g1 as _g1
 from ..kernels import msm_kernels
 from .wnaf import signed_digits, split_scalars, window
 
@@ -88,22 +87,12 @@ def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block:
 def _pippenger_impl(
     scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int
 ) -> JacobianPoints:
-    g1 = _g1(scalars_mont.device)
     digits, px, py, pinf = glv_entries(scalars_mont, points, c, block)
-    rounds = digits.shape[0]
     nbuckets = 1 << (c - 1)
     entries = msm_kernels.sort_rounds(digits, nbuckets)
     partials = msm_kernels.bucket_accumulate(entries, px, py, pinf, nbuckets, block)
     windows = msm_kernels.bucket_reduce(partials, nbuckets)  # lane r: round r's window
-    acc = g1.infinity(1)
-    for r in reversed(range(rounds)):  # most significant window first
-        for _ in range(c):
-            acc = g1.dbl(acc)
-        win = JacobianPoints(
-            windows.x[:, r : r + 1], windows.y[:, r : r + 1], windows.z[:, r : r + 1], windows.inf[r : r + 1]
-        )
-        acc = g1.add(acc, win)
-    return acc
+    return msm_kernels.window_combine(windows, c)
 
 
 def pippenger(

@@ -6,14 +6,18 @@
 builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
 process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
-element) - the MSM bucket kernels also on edge rounds against the host
-oracle - reproduces the pinned n = 16 proof digest on the card, checks a
-Pippenger MSM against the host oracle, and then drives the main path at
-n = 2^16 gates: SRS generation, verifier-key preprocessing,
-`Prover.construct_proof`, host `verify_proof`, failing if any kernel was
-never launched there. Each phase prints one JSON line and any failing phase
-exits non-zero. Without a CUDA device the script exits non-zero and prints
-no result.
+element) - the MSM bucket kernels and the window combine also on edge cases
+against the host oracle, the field power also against Python's pow -
+reproduces the pinned n = 16 proof digest on the card, checks a Pippenger
+MSM against the host oracle, and then drives the main path at n = 2^16
+gates: SRS generation, verifier-key preprocessing, `Prover.construct_proof`,
+host `verify_proof`. Launches are counted in three windows - the n = 16
+golden proof (whose small MSMs run the lane-wise point kernels), SRS
+generation, and the 2^16 preprocess + prove + verify - and the run fails if
+any kernel was never launched in them, or if the 2^16 windows still run the
+single-lane chains that K1 pow and K3c window_combine replace. Each phase
+prints one JSON line and any failing phase exits non-zero. Without a CUDA
+device the script exits non-zero and prints no result.
 
 `--cpu-rehearsal` walks the same control flow at toy sizes on the CPU (plain
 versions only) to find wrong paths and shapes without a card; it never
@@ -37,9 +41,15 @@ from barretenberg_tpu_torch.fields import fq as get_fq, fr as get_fr
 from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
 from barretenberg_tpu_torch.fields.params import FQ_PARAMS, FR_MODULUS, FR_PARAMS, R_INTERNAL
 from barretenberg_tpu_torch.groups import AffinePoints, JacobianPoints
-from barretenberg_tpu_torch.groups.g1 import fixed_base_mul, g1 as get_g1, jacobian_to_host, points_to_host
+from barretenberg_tpu_torch.groups.g1 import (
+    fixed_base_mul,
+    g1 as get_g1,
+    host_to_affine_points,
+    jacobian_to_host,
+    points_to_host,
+)
 from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
-from barretenberg_tpu_torch.msm import optimal_window, pippenger
+from barretenberg_tpu_torch.msm import MSM_PIPPENGER_THRESHOLD, optimal_window, pippenger
 from barretenberg_tpu_torch.msm.pippenger import glv_entries
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.polynomials import get_domain
@@ -72,6 +82,8 @@ REPLACES = {
     "point": "barretenberg_tpu/kernels/point_kernels.py:179",
     "bucket_accumulate": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:178",
     "bucket_reduce": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :107",
+    "field_pow": "barretenberg_tpu/kernels/field_kernels.py:64 (sqr, mont_mul) in the lax.scan of barretenberg_tpu/fields/montgomery.py:548",
+    "window_combine": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl, add) in the fori_loop of barretenberg_tpu/msm/pippenger.py:287-305",
 }
 
 
@@ -227,11 +239,15 @@ def check_field_kernels(device, lanes_check: int, lanes_time: int, rng, records:
                 want = field_kernels.plain(params, op, x, y)
                 if not torch.equal(got, want):
                     fail("kernels", f"field {op} over {params.name} disagrees with its plain version")
-    # timing at the main path's widest shape: the 4n = 2^18 quotient domain
+    # timing at the main path's widest shape, the 4n = 2^18 quotient domain,
+    # and at one lane (batch_normalize, the Lagrange and grand-product
+    # denominators)
     field = get_fr(device)
     a, b = field.random_elements(lanes_time, rng), field.random_elements(lanes_time, rng)
+    a1, b1 = a[:, :1].contiguous(), b[:, :1].contiguous()
     for op in ("mul", "sqr", "add", "sub"):
         y = None if op == "sqr" else b
+        y1 = None if op == "sqr" else b1
         got = field_op(FR_PARAMS, op, a, y)
         want = field_kernels.plain(FR_PARAMS, op, a, y)
         nbytes = (2 if op == "sqr" else 3) * ELEM_BYTES * lanes_time
@@ -245,7 +261,56 @@ def check_field_kernels(device, lanes_check: int, lanes_time: int, rng, records:
             "ms": time_ms(lambda: field_op(FR_PARAMS, op, a, y), device, 50),
             "plain_ms": time_ms(lambda: field_kernels.plain(FR_PARAMS, op, a, y), device, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "single_lane_ms": time_ms(lambda: field_op(FR_PARAMS, op, a1, y1), device, 50),
         })
+
+
+def pow_steps(exponent: int) -> int:
+    """Montgomery products in K1 pow's chain: one squaring per bit after the
+    first, one multiplication per set bit after the first."""
+    return max(0, exponent.bit_length() - 1) + max(0, bin(exponent).count("1") - 1)
+
+
+def check_field_pow(device, lanes_wide: int, rng, records: list) -> None:
+    """K1 pow against its plain version over Fr and Fq, at one lane (each of
+    the lanes 0, 1, p-1 and a random one, as strided views) and at
+    `lanes_wide` lanes, for the exponents p-2, r-2, 0, 1, 2 and a random
+    254-bit one; the field's own inverse also against Python's pow."""
+    exponents = [FQ_PARAMS.modulus - 2, FR_MODULUS - 2, 0, 1, 2,
+                 int.from_bytes(rng.bytes(32), "little") >> 2 | 1 << 253]
+    for params, get in ((FR_PARAMS, get_fr), (FQ_PARAMS, get_fq)):
+        field = get(device)
+        a = edge_elements(field, lanes_wide, rng)
+        for e in exponents:
+            want = field_kernels.plain_pow(params, a, e)  # lane-wise: lane i is lane i's own
+            for lo, hi in [(0, lanes_wide)] + [(i, i + 1) for i in range(4)]:
+                got = field_kernels.pow_static(params, a[:, lo:hi], e)
+                if not torch.equal(got, want[:, lo:hi]):
+                    fail("kernels", f"field pow over {params.name} at {hi - lo} lanes, e={e:#x}, disagrees with its plain version")
+        m = 256
+        inv = field.decode(field.invert(a[:, :m]))
+        if inv != [pow(v, field.p - 2, field.p) for v in field.decode(a[:, :m])]:
+            fail("kernels", f"field invert over {params.name} disagrees with Python's pow")
+    # timing at the main path's shape: one Fermat inversion of one Fq lane
+    # (batch_normalize), and beside it the same chain over lanes_wide lanes
+    field, e = get_fq(device), FQ_PARAMS.modulus - 2
+    steps = pow_steps(e)
+    one, wide = field.random_elements(1, rng), field.random_elements(lanes_wide, rng)
+    err = max_abs_err([field_kernels.pow_static(FQ_PARAMS, one, e)], [field_kernels.plain_pow(FQ_PARAMS, one, e)])
+    b_ms, b_by = bound(2 * ELEM_BYTES, steps * IMAD_PER_FIELD_MUL)
+    ms = time_ms(lambda: field_kernels.pow_static(FQ_PARAMS, one, e), device, 50)
+    wide_bound, _ = bound(2 * ELEM_BYTES * lanes_wide, steps * IMAD_PER_FIELD_MUL * lanes_wide)
+    records.append({
+        "name": "field_pow", "module": "field", "op": "pow", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/field_kernels.cu",
+        "replaces": REPLACES["field_pow"], "shape": [18, 1], "exponent": "p-2 (Fq)", "steps": steps,
+        "max_abs_err": err, "ms": ms, "ms_per_step": ms / steps,
+        "plain_ms": time_ms(lambda: field_kernels.plain_pow(FQ_PARAMS, one, e), device, 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "wide_shape": [18, lanes_wide],
+        "wide_ms": time_ms(lambda: field_kernels.pow_static(FQ_PARAMS, wide, e), device, 10),
+        "wide_bound_ms": wide_bound,
+    })
 
 
 def check_butterfly(device, log2n_check: int, log2n_time: int, rng, records: list) -> None:
@@ -375,6 +440,69 @@ def same(got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def horner_oracle(host_windows: list, c: int):
+    """sum_r 2^(c r) W_r on the host (None = infinity)."""
+    acc = None
+    for r, w in enumerate(host_windows):
+        acc = host_curve.g1_add(acc, host_curve.g1_mul(w, 1 << (c * r)))
+    return acc
+
+
+def edge_windows(device, rounds: int, c: int, rng) -> dict:
+    """Window batches (18, rounds) for K3c's edge cases, with the host
+    windows they stand for (None = infinity): every window at infinity; only
+    the lowest live; window 1 equal to 2^c times the running sum (the add
+    takes its doubling branch); window 1 its negation (the sum cancels to
+    infinity). Windows at infinity keep the coordinates of live points."""
+    curve = get_g1(device)
+    base = fixed_base_mul(rand_values(rounds, FR_MODULUS, rng), device)
+    host = jacobian_to_host(base)
+    above = horner_oracle(host[2:], c)  # running sum before window 1's doublings
+    cases = {}
+    for case in ("all_infinity", "lowest_only", "doubling", "cancel"):
+        w = JacobianPoints(*(t.clone() for t in base))
+        hw = list(host)
+        if case == "all_infinity":
+            w.inf[:] = True
+            hw = [None] * rounds
+        elif case == "lowest_only":
+            w.inf[1:] = True
+            hw[1:] = [None] * (rounds - 1)
+        else:
+            target = host_curve.g1_mul(above, 1 << c)
+            hw[1] = target if case == "doubling" else host_curve.g1_neg(target)
+            p = curve.to_jacobian(host_to_affine_points([hw[1]], device))
+            w.x[:, 1], w.y[:, 1], w.z[:, 1] = p.x[:, 0], p.y[:, 0], p.z[:, 0]
+        cases[case] = (w, hw)
+    return cases
+
+
+def check_window_combine(device, win: JacobianPoints, c: int, rng, records: list) -> None:
+    """K3c against its plain version (exact) on the main path's windows and
+    on the edge cases, and against the host oracle sum_r 2^(c r) W_r."""
+    rounds = win.inf.shape[0]
+    cases = edge_windows(device, rounds, c, rng)
+    cases["msm_windows"] = (win, jacobian_to_host(win))
+    for case, (w, hw) in cases.items():
+        got, want = msm_kernels.window_combine(w, c), msm_kernels.plain_window_combine(w, c)
+        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if err:
+            fail("kernels", f"window_combine disagrees with its plain version ({case})")
+        if jacobian_to_host(got) != [horner_oracle(hw, c)]:
+            fail("kernels", f"window_combine disagrees with the host oracle ({case})")
+    steps = rounds * (c + 1)
+    b_ms, b_by = bound((rounds + 1) * JAC_BYTES,
+                       rounds * (c * POINT_MULS["dbl"] + POINT_MULS["add"]) * IMAD_PER_FIELD_MUL)
+    ms = time_ms(lambda: msm_kernels.window_combine(win, c), device, 20)
+    records.append({
+        "name": "window_combine", "module": "msm", "op": "window_combine", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["window_combine"],
+        "shape": [18, rounds], "c": c, "steps": steps, "max_abs_err": err, "ms": ms, "ms_per_step": ms / steps,
+        "plain_ms": time_ms(lambda: msm_kernels.plain_window_combine(win, c), device, 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+
+
 def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> None:
     """K3a and K3b against their plain versions (exact), on edge rounds
     (also against the host oracle) and at the main path's MSM shape."""
@@ -434,10 +562,14 @@ def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> No
         "plain_ms": time_ms(lambda: msm_kernels.plain_bucket_reduce(got, nb), device, 1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    check_window_combine(device, win, c, rng, records)
 
 
 # ---------------------------------------------------------------------------
 COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
+
+
+WINDOWS = ("golden", "srs", "prove")  # the counted windows, in the order they run
 
 
 def reset_counts() -> None:
@@ -447,6 +579,27 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: dict(mod.launch_counts) for name, mod in COUNTED.items()}
+
+
+def read_single_lane() -> dict:
+    return {name: dict(mod.single_lane_counts) for name, mod in COUNTED.items() if hasattr(mod, "single_lane_counts")}
+
+
+def add_counts(parts) -> dict:
+    return {mod: {op: sum(p[mod][op] for p in parts) for op in ops} for mod, ops in parts[0].items()}
+
+
+def chain_faults(counts: dict) -> list:
+    """What the 2^16 windows (SRS generation + prove) must show now that
+    K1 pow and K3c window_combine carry the Fermat and Horner chains: no
+    lane-wise point doubling or add (every MSM there is a Pippenger MSM), one
+    pow per inversion (7 batch normalisations, the grand product, the
+    Lagrange denominators), one combine per MSM, and only the squarings of
+    batch_normalize's zinv^2."""
+    want = {("point", "dbl"): (0, 0), ("point", "add"): (0, 0), ("field", "pow"): (9, 9),
+            ("msm", "window_combine"): (17, 17), ("field", "sqr"): (0, 20)}
+    return [f"{mod}.{op}={counts[mod][op]} (want {lo}..{hi})"
+            for (mod, op), (lo, hi) in want.items() if not lo <= counts[mod][op] <= hi]
 
 
 def prove_and_verify(n: int, seed: int, device, timings=None):
@@ -499,18 +652,23 @@ def main() -> int:
     lanes = 256 if rehearsal else 1 << 16
     wide = 512 if rehearsal else 4 << log2n
     check_field_kernels(device, lanes, wide, rng, records)
+    check_field_pow(device, lanes, rng, records)
     check_butterfly(device, 8 if rehearsal else 16, 6 if rehearsal else log2n + 2, rng, records)
-    # lanes per launch on the main path: SRS generation's fixed-base mixed
-    # adds run over all n lanes; the MSM's window combine (the Horner chain)
-    # doubles and adds single lanes
-    point_shapes = {"dbl": 1, "add": 1, "mixed_add": min(lanes, 1 << log2n)}
+    # lanes per launch: SRS generation's fixed-base mixed adds run over all n
+    # lanes; the golden proof's small MSMs (naive_msm) double and add all
+    # 16 lanes of each MSM at once
+    point_shapes = {"dbl": 16, "add": 16, "mixed_add": min(lanes, 1 << log2n)}
     check_point_kernels(device, lanes, point_shapes, rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
     emit({"phase": "kernels", "ok": True, "lanes_checked": lanes, "kernels": [
         {k: r[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms")} | {"ok": True} for r in records]})
 
-    # ---- phase 3: golden digest ------------------------------------------
+    # ---- phase 3: golden digest (counted window "golden") ----------------
+    counts: dict = {}
+    single: dict = {}
+    reset_counts()
     proof, accepted, tampered_accepted = prove_and_verify(16, 7, device)
+    counts["golden"], single["golden"] = read_counts(), read_single_lane()
     blob = proof.serialize()
     digest = keccak256(blob).hex()
     if len(blob) != 800 or digest != GOLDEN_DIGEST or not accepted or tampered_accepted:
@@ -530,8 +688,9 @@ def main() -> int:
     emit({"phase": "msm_oracle", "ok": True, "n": m, "pippenger_seconds": round(t_dev, 3)})
 
     # ---- phase 5: the slice at a real size --------------------------------
-    # the main path is SRS generation + preprocess + prove + verify; the
-    # launch counts cover both windows, so that every kernel must run on it
+    # the main path is SRS generation + preprocess + prove + verify (counted
+    # windows "srs" and "prove"); with the golden window, every kernel must
+    # have launched
     n = 1 << log2n
     reset_counts()
     t0 = time.perf_counter()
@@ -539,29 +698,37 @@ def main() -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     srs_s = time.perf_counter() - t0
-    srs_counts = read_counts()
+    counts["srs"], single["srs"] = read_counts(), read_single_lane()
     timings: dict = {}
     reset_counts()
     t0 = time.perf_counter()
     proof, accepted, tampered_accepted = prove_and_verify(n, args.seed, device, timings)
     total_s = time.perf_counter() - t0
-    counts = read_counts()
-    main_counts = {mod: {op: v + srs_counts[mod][op] for op, v in c.items()} for mod, c in counts.items()}
+    counts["prove"], single["prove"] = read_counts(), read_single_lane()
+    all_counts = add_counts([counts[w] for w in WINDOWS])
+    main_counts = add_counts([counts["srs"], counts["prove"]])
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        idle = [f"{mod}.{op}" for mod, c in main_counts.items() for op, v in c.items() if v == 0]
+        idle = [f"{mod}.{op}" for mod, c in all_counts.items() for op, v in c.items() if v == 0]
         if idle:
-            fail("prove", f"kernels never launched on the main path (SRS generation + prove): {idle}")
+            fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
+        faults = chain_faults(main_counts) if n >= MSM_PIPPENGER_THRESHOLD else []
+        if faults:
+            fail("prove", f"launches over SRS generation + prove: {faults}")
     emit({"phase": "prove", "ok": True, "n": n, "srs_seconds": round(srs_s, 3),
           "prove_seconds": round(sum(timings.values()), 3), "phase_seconds": timings,
-          "preprocess_prove_verify_seconds": round(total_s, 3), "launches": counts,
-          "srs_launches": srs_counts,
+          "preprocess_prove_verify_seconds": round(total_s, 3),
+          "launches": counts, "single_lane_launches": single, "srs_prove_launches": main_counts,
           "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
 
     # ---- results ----------------------------------------------------------
     for r in records:
-        r["launches"] = main_counts[r.pop("module")][r.pop("op")]
+        mod, op = r.pop("module"), r.pop("op")
+        r["launches"] = all_counts[mod][op]
+        r["launches_by_window"] = {w: counts[w][mod][op] for w in WINDOWS}
+        if op in single["prove"].get(mod, {}):
+            r["single_lane_launches"] = sum(single[w][mod][op] for w in WINDOWS)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": records})
     print(smi, flush=True)

@@ -7,8 +7,12 @@ Runs `Prover.construct_proof` of the PyTorch/CUDA port on the arithmetic-gate
 fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
 one untraced warm-up prove, and prints one JSON line: wall seconds, summed
 device seconds of all kernels, the device's busy share of the wall, the
-number of device operations (kernels and copies) the prove issued, and the
-top kernels by device time. Needs one CUDA device.
+number of device operations (kernels and copies) the prove ran, the
+top kernels by device time, and for each of the port's kernel wrappers its
+launches in the traced prove (from the wrappers' counters; single-lane
+launches apart) beside the profiler's calls and device time for the CUDA
+kernel it launches, so that launches x (device time per call - bound) can
+be read from one run. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -26,8 +30,38 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from barretenberg_tpu_torch import convert  # noqa: E402
+from barretenberg_tpu_torch.kernels import butterfly, field_kernels, msm_kernels, point_kernels  # noqa: E402
 from barretenberg_tpu_torch.srs import test_srs  # noqa: E402
 from chip_smoke import fixture_arrays  # noqa: E402
+
+
+COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
+# The CUDA kernel (as the profiler names it) each wrapper's counter stands for.
+KERNEL_NAMES = {
+    "field.mul": "field_op_kernel<0>", "field.sqr": "field_op_kernel<1>",
+    "field.add": "field_op_kernel<2>", "field.sub": "field_op_kernel<3>",
+    "field.pow": "field_pow_kernel", "butterfly.stage": "butterfly_stage_kernel",
+    "point.dbl": "point_dbl_kernel", "point.add": "point_add_kernel<false>",
+    "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
+    "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
+}
+
+
+def kernel_launches(rows) -> dict:
+    """Per counted op: the wrapper's launches (and single-lane launches) and
+    the profiler's calls and device seconds for the kernel it launches."""
+    out = {}
+    for mod_name, mod in COUNTED.items():
+        single = getattr(mod, "single_lane_counts", {})
+        for op, n in mod.launch_counts.items():
+            key = f"{mod_name}.{op}"
+            match = [r for r in rows if KERNEL_NAMES[key] in r[0]]
+            out[key] = {
+                "launches": n, "single_lane_launches": single.get(op),
+                "profiler_calls": sum(r[1] for r in match),
+                "device_seconds": sum(r[2] for r in match) / 1e6,
+            }
+    return out
 
 
 def main() -> int:
@@ -45,6 +79,8 @@ def main() -> int:
     convert.prover_from_arrays(n, srs, *arrays).construct_proof()  # warm-up: builds tables
     prover = convert.prover_from_arrays(n, srs, *arrays)
     torch.cuda.synchronize(device)
+    for mod in COUNTED.values():
+        mod.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prover.construct_proof()
@@ -63,6 +99,7 @@ def main() -> int:
         "device_seconds": device_s, "device_busy_share": device_s / wall,
         "device_ops": sum(r[1] for r in rows),
         "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
+        "kernels": kernel_launches(rows),
     }))
     return 0
 
