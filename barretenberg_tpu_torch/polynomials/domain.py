@@ -10,11 +10,11 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..config import resolve_device
 from ..fields import fr as _fr
+from ..kernels.butterfly import bit_reverse_indices
 from ..utils.scans import hillis_scan
 
 
@@ -64,14 +64,9 @@ class EvaluationDomain:
     def coset_scale_inverse(self) -> torch.Tensor:
         return self._power_table(self.generator_inverse, self.size)
 
-    @functools.cached_property
+    @property
     def bit_reverse_indices(self) -> torch.Tensor:
-        n, bits = self.size, self.log2_size
-        idx = np.arange(n, dtype=np.uint32)
-        rev = np.zeros_like(idx)
-        for b in range(bits):
-            rev |= ((idx >> b) & 1) << (bits - 1 - b)
-        return torch.from_numpy(rev.astype(np.int64)).to(self.device)
+        return bit_reverse_indices(self.log2_size, self.device)
 
     @functools.cached_property
     def _root_vector(self) -> torch.Tensor:

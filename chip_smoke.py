@@ -8,14 +8,18 @@ process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
 element) - the MSM bucket kernels and the window combine also on edge cases
 against the host oracle, the field power also against Python's pow -
+holds K2b fft_pass (every FFT's passes) against its plain version for all
+seven public transforms at n = 2^4, 2^10 and 2^16 with the default and a
+small tile, and the whole 2^18 transform against the K2 stage-by-stage path,
 reproduces the pinned n = 16 proof digest on the card, checks a Pippenger
 MSM against the host oracle, and then drives the main path at n = 2^16
 gates: SRS generation, verifier-key preprocessing, `Prover.construct_proof`,
 host `verify_proof`. Launches are counted in three windows - the n = 16
 golden proof (whose small MSMs run the lane-wise point kernels), SRS
 generation, and the 2^16 preprocess + prove + verify - and the run fails if
-any kernel was never launched in them, or if the 2^16 windows still run the
-single-lane chains that K1 pow and K3c window_combine replace. Each phase
+any kernel of the path was never launched in them, or if the 2^16 windows
+still run the single-lane chains that K1 pow and K3c window_combine replace
+or the K2 stage launches that K2b replaces. Each phase
 prints one JSON line and any failing phase exits non-zero. Without a CUDA
 device the script exits non-zero and prints no result.
 
@@ -52,7 +56,7 @@ from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_
 from barretenberg_tpu_torch.msm import MSM_PIPPENGER_THRESHOLD, optimal_window, pippenger
 from barretenberg_tpu_torch.msm.pippenger import glv_entries
 from barretenberg_tpu_torch.plonk import preprocess
-from barretenberg_tpu_torch.polynomials import get_domain
+from barretenberg_tpu_torch.polynomials import fft, get_domain
 from barretenberg_tpu_torch.srs import test_srs
 from barretenberg_tpu_torch.transcript.keccak import keccak256
 from barretenberg_tpu_torch.utils import host_curve
@@ -79,6 +83,7 @@ MSM_BLOCK = 128  # pippenger's default block
 REPLACES = {
     "field": "barretenberg_tpu/kernels/field_kernels.py:64",
     "butterfly": "barretenberg_tpu/kernels/butterfly.py:79",
+    "fft_pass": "barretenberg_tpu/kernels/butterfly.py:79 (log2(n) stages) and the bit-reverse gather and scale multiplies of barretenberg_tpu/polynomials/fft.py:84-152",
     "point": "barretenberg_tpu/kernels/point_kernels.py:179",
     "bucket_accumulate": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:178",
     "bucket_reduce": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :107",
@@ -353,6 +358,96 @@ def check_butterfly(device, log2n_check: int, log2n_time: int, rng, records: lis
     })
 
 
+# (inverse, coset, constant) of the seven public transforms
+FFT_VARIANTS = {
+    "fft": (False, False, None), "ifft": (True, False, None),
+    "coset_fft": (False, True, None), "coset_ifft": (True, True, None),
+    "fft_with_constant": (False, False, 0xBEEF), "ifft_with_constant": (True, False, 0xBEEF),
+    "coset_fft_with_constant": (False, True, 0xBEEF),
+}
+# the transform each domain size of the 2^16 prove runs most (log2 of n / 2^16
+# -> variant): 12 wire / Z / sigma / selector iFFTs, 5 coset FFTs with the
+# alpha constant, 7 quotient coset FFTs
+TIMED_VARIANTS = {0: "ifft", 1: "coset_fft_with_constant", 2: "coset_fft"}
+
+
+def stage_path(x, domain, inverse: bool, coset: bool, value):
+    """A transform as the port ran it on the card before K2b: K1 scale
+    multiplies, the bit-reverse gather and one K2 launch per stage."""
+    fr, n = domain.fr, domain.size
+    scale = (value if value is not None else 1) % fr.p
+    if inverse:
+        scale = domain.domain_inverse * scale % fr.p
+    if not inverse:
+        if coset:
+            x = fr.mont_mul(x, domain.coset_scale)
+        if scale != 1:
+            x = fr.mul_by_constant(x, scale)
+    x = x.index_select(1, domain.bit_reverse_indices)
+    table = domain.inverse_twiddles if inverse else domain.twiddles
+    for s in range(domain.log2_size):
+        h = 1 << s
+        x5 = x.reshape(18, n // (2 * h), 2, h, 1)
+        x = butterfly.butterfly_stage(FR_PARAMS, x5, table[:, :: n // (2 * h)][:, :h]).reshape(18, n)
+    if inverse:
+        if scale != 1:
+            x = fr.mul_by_constant(x, scale)
+        if coset:
+            x = fr.mont_mul(x, domain.coset_scale_inverse)
+    return x
+
+
+def fft_bound(log2n: int, inverse: bool, coset: bool, value):
+    """The least time of one whole transform: the array in and out, the
+    twiddles and the coset table read once; log2(n) * n / 2 butterfly
+    products plus one product per element for each scale."""
+    n = 1 << log2n
+    scales = int(coset) + int(inverse or value is not None)
+    nbytes = ELEM_BYTES * (2 * n + n // 2 + (n if coset else 0))
+    return bound(nbytes, IMAD_PER_FIELD_MUL * (log2n * n // 2 + scales * n))
+
+
+def check_fft_pass(device, log2n_check, log2n_time, small_tile, rng, records: list) -> None:
+    """K2b against its plain version (exact) for every public transform,
+    with the default pass plan and a small-tile one, on edge elements; the
+    whole transform at the largest timed size also against the K2
+    stage-by-stage path; one timing record per timed size."""
+    field = get_fr(device)
+    for k in log2n_check:
+        d = get_domain(1 << k, device)
+        x = edge_elements(field, 1 << k, rng)
+        for plan in (fft.fft_plan(k), fft.fft_plan(k, *small_tile)):
+            for name, (inv, coset, val) in FFT_VARIANTS.items():
+                got = fft.transform(x, d, inv, coset, val, plan)
+                want = fft.transform(x, d, inv, coset, val, plan, butterfly.plain_fft_pass)
+                if not torch.equal(got, want):
+                    fail("kernels", f"fft_pass {name} at n=2^{k}, plan {plan}, disagrees with its plain version")
+    k = log2n_time[-1]
+    d = get_domain(1 << k, device)
+    x = edge_elements(field, 1 << k, rng)
+    for name, (inv, coset, val) in FFT_VARIANTS.items():
+        if not torch.equal(fft.transform(x, d, inv, coset, val), stage_path(x, d, inv, coset, val)):
+            fail("kernels", f"fft_pass {name} at n=2^{k} disagrees with the K2 stage-by-stage path")
+    for i, k in enumerate(log2n_time):
+        name = TIMED_VARIANTS[i]
+        inv, coset, val = FFT_VARIANTS[name]
+        d = get_domain(1 << k, device)
+        x = field.random_elements(1 << k, rng)
+        plan = fft.fft_plan(k)
+        got = fft.transform(x, d, inv, coset, val)
+        want = fft.transform(x, d, inv, coset, val, plan, butterfly.plain_fft_pass)
+        b_ms, b_by = fft_bound(k, inv, coset, val)
+        records.append({
+            "name": "fft_pass", "module": "butterfly", "op": "pass", "route": "cuda",
+            "source": "barretenberg_tpu_torch/csrc/butterfly.cu", "replaces": REPLACES["fft_pass"],
+            "shape": [18, 1 << k], "transform": name, "passes": plan, "max_abs_err": max_abs_err([got], [want]),
+            "ms": time_ms(lambda: fft.transform(x, d, inv, coset, val), device, 20),
+            "plain_ms": time_ms(lambda: fft.transform(x, d, inv, coset, val, plan, butterfly.plain_fft_pass), device, 1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "stage_path_ms": time_ms(lambda: stage_path(x, d, inv, coset, val), device, 20),
+        })
+
+
 def check_point_kernels(device, lanes_check: int, shapes: dict, rng, records: list) -> None:
     curve = get_g1(device)
     p, q, qa = edge_points(curve, lanes_check, rng)
@@ -589,15 +684,26 @@ def add_counts(parts) -> dict:
     return {mod: {op: sum(p[mod][op] for p in parts) for op in ops} for mod, ops in parts[0].items()}
 
 
-def chain_faults(counts: dict) -> list:
+# transforms of the preprocess + prove window by domain size (log2 of size / n):
+# 8 + 12 iFFTs at n, 5 coset FFTs with a constant and one coset iFFT at 2n,
+# 7 coset FFTs and one coset iFFT at 4n
+PROVE_TRANSFORMS = {0: 20, 1: 6, 2: 8}
+
+
+def chain_faults(counts: dict, log2n: int) -> list:
     """What the 2^16 windows (SRS generation + prove) must show now that
-    K1 pow and K3c window_combine carry the Fermat and Horner chains: no
-    lane-wise point doubling or add (every MSM there is a Pippenger MSM), one
-    pow per inversion (7 batch normalisations, the grand product, the
-    Lagrange denominators), one combine per MSM, and only the squarings of
-    batch_normalize's zinv^2."""
+    K1 pow and K3c window_combine carry the Fermat and Horner chains and K2b
+    the FFTs: no lane-wise point doubling or add (every MSM there is a
+    Pippenger MSM), one pow per inversion (7 batch normalisations, the grand
+    product, the Lagrange denominators), one combine per MSM, only the
+    squarings of batch_normalize's zinv^2, no K2 stage launch and exactly the
+    pass plans' K2b launches (at most three per transform)."""
+    passes = sum(t * len(fft.fft_plan(log2n + i)) for i, t in PROVE_TRANSFORMS.items())
+    if passes > 3 * sum(PROVE_TRANSFORMS.values()):
+        return [f"the pass plans take {passes} launches for {sum(PROVE_TRANSFORMS.values())} transforms"]
     want = {("point", "dbl"): (0, 0), ("point", "add"): (0, 0), ("field", "pow"): (9, 9),
-            ("msm", "window_combine"): (17, 17), ("field", "sqr"): (0, 20)}
+            ("msm", "window_combine"): (17, 17), ("field", "sqr"): (0, 20),
+            ("butterfly", "stage"): (0, 0), ("butterfly", "pass"): (passes, passes)}
     return [f"{mod}.{op}={counts[mod][op]} (want {lo}..{hi})"
             for (mod, op), (lo, hi) in want.items() if not lo <= counts[mod][op] <= hi]
 
@@ -654,6 +760,8 @@ def main() -> int:
     check_field_kernels(device, lanes, wide, rng, records)
     check_field_pow(device, lanes, rng, records)
     check_butterfly(device, 8 if rehearsal else 16, 6 if rehearsal else log2n + 2, rng, records)
+    check_fft_pass(device, (4, 6, 8) if rehearsal else (4, 10, log2n),
+                   (6, 7, 8) if rehearsal else (log2n, log2n + 1, log2n + 2), (4, 1), rng, records)
     # lanes per launch: SRS generation's fixed-base mixed adds run over all n
     # lanes; the golden proof's small MSMs (naive_msm) double and add all
     # 16 lanes of each MSM at once
@@ -710,10 +818,13 @@ def main() -> int:
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        idle = [f"{mod}.{op}" for mod, c in all_counts.items() for op, v in c.items() if v == 0]
+        # K2's stage kernel is off the main path (K2b runs every FFT's stages);
+        # the kernels phase still holds it against its plain version
+        idle = [f"{mod}.{op}" for mod, c in all_counts.items() for op, v in c.items()
+                if v == 0 and (mod, op) != ("butterfly", "stage")]
         if idle:
             fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
-        faults = chain_faults(main_counts) if n >= MSM_PIPPENGER_THRESHOLD else []
+        faults = chain_faults(main_counts, log2n) if n >= MSM_PIPPENGER_THRESHOLD else []
         if faults:
             fail("prove", f"launches over SRS generation + prove: {faults}")
     emit({"phase": "prove", "ok": True, "n": n, "srs_seconds": round(srs_s, 3),

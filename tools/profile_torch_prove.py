@@ -41,6 +41,7 @@ KERNEL_NAMES = {
     "field.mul": "field_op_kernel<0>", "field.sqr": "field_op_kernel<1>",
     "field.add": "field_op_kernel<2>", "field.sub": "field_op_kernel<3>",
     "field.pow": "field_pow_kernel", "butterfly.stage": "butterfly_stage_kernel",
+    "butterfly.pass": "fft_pass_kernel",
     "point.dbl": "point_dbl_kernel", "point.add": "point_add_kernel<false>",
     "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
     "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
