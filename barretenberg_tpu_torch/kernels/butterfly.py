@@ -109,17 +109,13 @@ def butterfly_stage(params: FieldParams, x5: torch.Tensor, tw: torch.Tensor) -> 
 
 
 @functools.cache
-def _bit_reverse(log2n: int, device: torch.device) -> torch.Tensor:
+def bit_reverse_indices(log2n: int, device: torch.device) -> torch.Tensor:
+    """(2^log2n,) int64 on `device`: i -> i with its log2n bits reversed."""
     idx = torch.arange(1 << log2n, dtype=torch.int64)
     rev = torch.zeros_like(idx)
     for b in range(log2n):
         rev |= ((idx >> b) & 1) << (log2n - 1 - b)
     return rev.to(device)
-
-
-def bit_reverse_indices(log2n: int, device) -> torch.Tensor:
-    """(2^log2n,) int64: i -> i with its log2n bits reversed."""
-    return _bit_reverse(log2n, torch.device(device))
 
 
 def plain_fft_pass(params: FieldParams, x, table, log2n: int, s0: int, stages: int, col_log: int,

@@ -83,7 +83,7 @@ MSM_BLOCK = 128  # pippenger's default block
 REPLACES = {
     "field": "barretenberg_tpu/kernels/field_kernels.py:64",
     "butterfly": "barretenberg_tpu/kernels/butterfly.py:79",
-    "fft_pass": "barretenberg_tpu/kernels/butterfly.py:79 (log2(n) stages) and the bit-reverse gather and scale multiplies of barretenberg_tpu/polynomials/fft.py:84-152",
+    "fft_pass": "barretenberg_tpu/kernels/butterfly.py:79 (log2(n) stages) and the bit-reverse gather (barretenberg_tpu/polynomials/fft.py:95) and scale multiplies (:130-151)",
     "point": "barretenberg_tpu/kernels/point_kernels.py:179",
     "bucket_accumulate": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:178",
     "bucket_reduce": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :107",

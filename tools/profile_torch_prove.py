@@ -7,12 +7,13 @@ Runs `Prover.construct_proof` of the PyTorch/CUDA port on the arithmetic-gate
 fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
 one untraced warm-up prove, and prints one JSON line: wall seconds, summed
 device seconds of all kernels, the device's busy share of the wall, the
-number of device operations (kernels and copies) the prove ran, the
-top kernels by device time, and for each of the port's kernel wrappers its
-launches in the traced prove (from the wrappers' counters; single-lane
-launches apart) beside the profiler's calls and device time for the CUDA
-kernel it launches, so that launches x (device time per call - bound) can
-be read from one run. Needs one CUDA device.
+number of device operations (kernels and copies) the prove ran, its
+``index_select`` calls (gathers), the top kernels by device time, and for
+each of the port's kernel wrappers its launches in the traced prove (from
+the wrappers' counters; single-lane launches apart) beside the profiler's
+calls and device time for the CUDA kernel it launches, so that launches x
+(device time per call - bound) can be read from one run. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ def main() -> int:
         "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
         "device_seconds": device_s, "device_busy_share": device_s / wall,
         "device_ops": sum(r[1] for r in rows),
+        "index_select_calls": sum(e.count for e in prof.key_averages() if e.key == "aten::index_select"),
         "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
         "kernels": kernel_launches(rows),
     }))
