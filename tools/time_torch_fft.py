@@ -41,8 +41,8 @@ TILES = ("8:2", "9:3", "10:3", "11:3", "12:3")
 
 
 def device_ms(paths: dict, reps: int) -> dict:
-    """Device milliseconds per call of each path: one profiler session runs
-    each path `reps` times inside its own labelled range, synchronised at
+    """Device milliseconds per call of each path: one profiler run covers
+    each path, `reps` calls inside its own labelled range, synchronised at
     the range's end, so the device events that start inside the range are
     that path's."""
     for fn in paths.values():
