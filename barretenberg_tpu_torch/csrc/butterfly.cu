@@ -173,14 +173,15 @@ fft_pass_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, long
 
 // x, out: contiguous (18, n), n = 2^log2n; tw: (18, >= n/2) twiddle powers
 // with the given strides. Runs stages [s0, s0 + b) with 2^cl columns per
-// CTA (the wrapper checks the plan). sc_tab: (18, n) scale table or null;
-// sc_const: 9 words of a 30-bit-limb constant (host memory) or null;
-// sc_out: apply the scale after the stages (else before).
+// CTA, a tile of at most 2^max_tile_log elements (the wrapper checks the
+// plan and owns the limit). sc_tab: (18, n) scale table or null; sc_const:
+// 9 words of a 30-bit-limb constant (host memory) or null; sc_out: apply
+// the scale after the stages (else before).
 extern "C" int bb_fft_pass(const void* x, void* out, long n, int log2n,
-                           const void* tw, long tw_ls, long tw_es, int s0, int b, int cl,
+                           const void* tw, long tw_ls, long tw_es, int s0, int b, int cl, int max_tile_log,
                            const void* sc_tab, long sc_ls, long sc_es, const uint32_t* sc_const,
                            int sc_out, const uint32_t* consts, void* stream) {
-    if (n != (1L << log2n) || b < 0 || s0 < 0 || s0 + b > log2n || cl < 0 || b + cl > 12)
+    if (n != (1L << log2n) || b < 0 || s0 < 0 || s0 + b > log2n || cl < 0 || b + cl > max_tile_log)
         return (int)cudaErrorInvalidValue;
     if (s0 == 0 ? cl > log2n - b : cl > s0) return (int)cudaErrorInvalidValue;
     PassScale sc;

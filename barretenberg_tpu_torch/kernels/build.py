@@ -116,7 +116,7 @@ _SIGNATURES = {
     },
     "butterfly": {
         "bb_butterfly_stage": [_VP, _VP, _L, _L, _VP, _L, _L, _L, _VP, _VP],
-        "bb_fft_pass": [_VP, _VP, _L, _I, _VP, _L, _L, _I, _I, _I, _VP, _L, _L, _VP, _I, _VP, _VP],
+        "bb_fft_pass": [_VP, _VP, _L, _I, _VP, _L, _L, _I, _I, _I, _I, _VP, _L, _L, _VP, _I, _VP, _VP],
     },
     "point_kernels": {
         "bb_point_dbl": [_VP] * 6 + [_L, _VP, _VP],

@@ -57,8 +57,8 @@ L = NUM_LIMBS
 launch_counts = {"stage": 0, "pass": 0}
 single_lane_counts = {"stage": 0}
 
-# csrc/butterfly.cu: a K2b tile holds at most 2^12 elements (36 bytes each in
-# shared memory: 144 KB of the 227 KB a CTA can have).
+# The largest K2b tile, 2^12 elements (36 bytes each in shared memory: 144 KB
+# of the 227 KB a CTA can have); csrc/butterfly.cu gets it with every launch.
 MAX_TILE_LOG = 12
 
 
@@ -172,7 +172,7 @@ def _launch_pass(params, x, table, log2n, s0, stages, col_log, scale, scale_cons
     with torch.cuda.device(x.device):
         err = lib.bb_fft_pass(
             x.data_ptr(), out.data_ptr(), n, log2n, table.data_ptr(), table.stride(0), table.stride(1),
-            s0, stages, col_log,
+            s0, stages, col_log, MAX_TILE_LOG,
             None if scale is None else scale.data_ptr(),
             0 if scale is None else scale.stride(0), 0 if scale is None else scale.stride(1),
             None if words is None else words.ctypes.data, int(scale_at_output),

@@ -1,6 +1,8 @@
 """The FFT's pass plan (K2b ``fft_pass``'s module, through its plain
-version) against the JAX package's transforms and against the flat
-stage-by-stage loop, limb for limb (tolerance 0), on the CPU.
+version) against the JAX package's transforms and against the
+stage-by-stage path the port ran before K2b (``chip_smoke.stage_path``,
+whose K2 stages run their plain version on the CPU), limb for limb
+(tolerance 0), on the CPU.
 
 The JAX side runs only at n = 16 and n = 1024 and only programs that
 tests/test_torch_fft.py already compiles; at n = 1024 the forward
@@ -20,20 +22,14 @@ from barretenberg_tpu_torch.fields import fr as tfr
 from barretenberg_tpu_torch.fields.params import FR_PARAMS
 from barretenberg_tpu_torch.kernels import butterfly
 from barretenberg_tpu_torch.polynomials import fft, get_domain
+from chip_smoke import FFT_VARIANTS as VARIANTS, stage_path
 
 # The port's CPU path is many tiny tensor ops; intra-op threads only add
 # synchronisation cost there and fight the other test workers for cores.
 torch.set_num_threads(1)
 
 P = jfr.p
-K = 0xBEEF
-# (inverse, coset, constant) of the seven public transforms
-VARIANTS = {
-    "fft": (False, False, None), "ifft": (True, False, None),
-    "coset_fft": (False, True, None), "coset_ifft": (True, True, None),
-    "fft_with_constant": (False, False, K), "ifft_with_constant": (True, False, K),
-    "coset_fft_with_constant": (False, True, K),
-}
+K = VARIANTS["fft_with_constant"][2]
 # (tile_log, col_log): the default, and tiles of 2^2 and 2^3 elements that
 # split n = 1024 into 5 and 4 passes (the last of 4 uneven)
 TILES = {"default": (fft.TILE_LOG, fft.COL_LOG), "tile4": (2, 0), "tile8": (3, 0), "tile8x2": (3, 1)}
@@ -75,31 +71,6 @@ def test_pass_plan_matches_jax(n, name, tile):
         assert _same(getattr(fft, name)(x, get_domain(n, "cpu"), *args), want)
 
 
-def _flat_stage_loop(x, domain, inverse, coset, value):
-    """The transform as one gather, log2(n) K2 plain stages and the scale
-    multiplies around them."""
-    f = domain.fr
-    n = domain.size
-    scale = (value if value is not None else 1) % P
-    if inverse:
-        scale = domain.domain_inverse * scale % P
-    if not inverse:
-        if coset:
-            x = f.mont_mul(x, domain.coset_scale)
-        x = f.mul_by_constant(x, scale)
-    x = x.index_select(1, domain.bit_reverse_indices)
-    table = domain.inverse_twiddles if inverse else domain.twiddles
-    for s in range(domain.log2_size):
-        h = 1 << s
-        x5 = x.reshape(18, n // (2 * h), 2, h, 1)
-        x = butterfly.plain(FR_PARAMS, x5, table[:, :: n // (2 * h)][:, :h]).reshape(18, n)
-    if inverse:
-        x = f.mul_by_constant(x, scale)
-        if coset:
-            x = f.mont_mul(x, domain.coset_scale_inverse)
-    return x
-
-
 @pytest.mark.parametrize("tiles", [(5, 1), (7, 3), (9, 3)])
 @pytest.mark.parametrize("name", ["fft", "coset_ifft", "coset_fft_with_constant"])
 def test_pass_plan_equals_flat_stage_loop(name, tiles):
@@ -109,7 +80,7 @@ def test_pass_plan_equals_flat_stage_loop(name, tiles):
     inv, coset, val = VARIANTS[name]
     plan = fft.fft_plan(12, *tiles)
     assert len(plan) > 1
-    assert torch.equal(fft.transform(x, d, inv, coset, val, plan), _flat_stage_loop(x, d, inv, coset, val))
+    assert torch.equal(fft.transform(x, d, inv, coset, val, plan), stage_path(x, d, inv, coset, val))
 
 
 def test_fft_plan_shapes():

@@ -10,10 +10,11 @@ col_log)``, given as tile_log:col_log) and, beside it, through the K2
 stage-by-stage path the port ran before K2b (``chip_smoke.stage_path``).
 Every result is first checked against the stage path (exact). Prints one
 JSON line per (size, path): mean ms per transform (CUDA events over
-back-to-back calls), device ms per transform (``torch.profiler``, the
-summed time of every device operation of the transform), launches per
-transform, and the transform's bound (``chip_smoke.fft_bound``); then the
-card's name and power limit.
+back-to-back calls), device ms per transform (``torch.profiler``, one
+session per path: the summed time of every device operation it records;
+the tool fails if that is zero), launches per transform, and the
+transform's bound (``chip_smoke.fft_bound``); then the card's name and
+power limit.
 Needs one CUDA device.
 """
 
@@ -28,7 +29,7 @@ import sys
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -40,30 +41,21 @@ from chip_smoke import FFT_VARIANTS, TIMED_VARIANTS, fft_bound, stage_path, time
 TILES = ("8:2", "9:3", "10:3", "11:3", "12:3")
 
 
-def device_ms(paths: dict, reps: int) -> dict:
-    """Device milliseconds per call of each path: one profiler run covers
-    each path, `reps` calls inside its own labelled range, synchronised at
-    the range's end, so the device events that start inside the range are
-    that path's."""
-    for fn in paths.values():
-        fn()
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of `fn`: one profiler session of its own
+    around `reps` calls (after a warm-up), so that every device operation the
+    session records is fn's; the sum of their device times over `reps`.
+    Raises if the profiler recorded no device time."""
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for name, fn in paths.items():
-            with record_function(f"path:{name}"):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    ranges = {e.name[5:]: e.time_range for e in events
-              if e.name.startswith("path:") and e.device_type == DeviceType.CPU}
-    us = dict.fromkeys(paths, 0.0)
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("path:"):
-            for name, r in ranges.items():
-                if r.start <= e.time_range.start < r.end:
-                    us[name] += e.time_range.elapsed_us()
-    return {name: t / 1e3 / reps for name, t in us.items()}
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def launches(fn) -> dict:
@@ -103,12 +95,11 @@ def main() -> int:
                 return 1
             paths[f"fft_pass {tile}"] = lambda plan=plan: fft.transform(x, d, inv, coset, val, plan)
             plans[f"fft_pass {tile}"] = plan
-        dev_ms = device_ms(paths, 5)
         for path, fn in paths.items():
             print(json.dumps({
                 "log2n": log2n, "transform": name, "path": path, "plan": plans[path],
                 "default_plan": plans[path] == fft.fft_plan(log2n),
-                "ms": time_ms(fn, device, args.reps), "device_ms": dev_ms[path],
+                "ms": time_ms(fn, device, args.reps), "device_ms": device_ms(fn, 5),
                 "launches": launches(fn), "bound_ms": b_ms, "bound_by": b_by,
             }), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
