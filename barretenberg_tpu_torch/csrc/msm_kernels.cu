@@ -32,47 +32,12 @@
 
 #include "point.cuh"
 
-#define ROW_WORDS 20        // one point-table row: x, y (9 x 30-bit each), inf, pad
 #define ACC_THREADS 64
 #define REDUCE_THREADS 256
 
 __device__ __forceinline__ int bucket_of(int d, int nbuckets) {
     int mag = d < 0 ? -d : d;
     return mag == 0 ? nbuckets : mag - 1;
-}
-
-__device__ __forceinline__ fe fe_zero() {
-    fe r;
-#pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = 0;
-    return r;
-}
-
-__device__ __forceinline__ void load_row(const uint4* __restrict__ table, int idx,
-                                         uint32_t (&w)[ROW_WORDS]) {
-    const uint4* row = table + (long)idx * (ROW_WORDS / 4);
-#pragma unroll
-    for (int q = 0; q < ROW_WORDS / 4; ++q) {
-        uint4 t = __ldg(row + q);
-        w[4 * q] = t.x;
-        w[4 * q + 1] = t.y;
-        w[4 * q + 2] = t.z;
-        w[4 * q + 3] = t.w;
-    }
-}
-
-struct Pts {
-    uint32_t* x;
-    uint32_t* y;
-    uint32_t* z;
-    uint8_t* inf;
-};
-
-__device__ __forceinline__ void store_pt(const Pts& p, long lane, long stride, const jpt& v) {
-    fe_store(p.x + lane, stride, v.x);
-    fe_store(p.y + lane, stride, v.y);
-    fe_store(p.z + lane, stride, v.z);
-    p.inf[lane] = v.inf ? 1 : 0;
 }
 
 __device__ __forceinline__ fe fe_load_cg(const uint32_t* base, long limb_stride) {

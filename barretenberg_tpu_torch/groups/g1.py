@@ -68,23 +68,27 @@ def _fixed_base_table_host() -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _fixed_base_table(device: torch.device) -> AffinePoints:
+def fixed_base_table(device: torch.device) -> AffinePoints:
+    """The (18, 32 * 256) window table on one device, built once."""
     return host_to_affine_points(list(_fixed_base_table_host()), device)
 
 
-def fixed_base_mul(scalars: list, device=None) -> JacobianPoints:
-    """[k_i]G for a list of host-int scalars, via the window table: a loop
-    of 32 gather + mixed-add steps for any batch size (the fast path for SRS
-    generation and any generator exponentiation)."""
-    curve = g1(device)
+def fixed_base_digits(scalars: list, device=None) -> torch.Tensor:
+    """Host-int scalars -> (32, n) uint8 window digits (the little-endian
+    bytes of each scalar mod r) on the device."""
     n = len(scalars)
     buf = np.frombuffer(
         b"".join((int(s) % FR_MODULUS).to_bytes(32, "little") for s in scalars),
         dtype=np.uint8,
     ).reshape(n, 32)
-    digits = torch.from_numpy(buf.T.astype(np.int64)).to(curve.device)  # (32, n) window bytes
-    table = _fixed_base_table(curve.device)
-    acc = curve.infinity(n)
-    for w in range(32):
-        acc = curve.mixed_add(acc, Curve.take_affine(table, digits[w] + w * 256))
-    return acc
+    return torch.from_numpy(np.ascontiguousarray(buf.T)).to(resolve_device(device))
+
+
+def fixed_base_mul(scalars: list, device=None) -> JacobianPoints:
+    """[k_i]G for a list of host-int scalars, via the window table: 32
+    gather + mixed-add steps for any batch size, one K3e launch on the card
+    (the fast path for SRS generation and any generator exponentiation)."""
+    from ..kernels import point_kernels
+
+    dev = resolve_device(device)
+    return point_kernels.fixed_base(fixed_base_digits(scalars, dev), fixed_base_table(dev))

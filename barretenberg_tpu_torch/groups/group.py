@@ -153,14 +153,12 @@ class Curve:
     # Scalar multiplication (oracle-grade; MSM lives in msm/)
     # ------------------------------------------------------------------
     def scalar_mul_bits(self, p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
-        """Double-and-add over an MSB-first bit array, bits: (nbits, n) in
-        {0, 1}: a Python loop of one doubling and one mixed addition per
-        bit."""
-        acc = self.infinity(p.x.shape[1])
-        for k in range(bits.shape[0]):
-            acc = self.dbl(acc)
-            acc = self.select_points(bits[k] > 0, self.mixed_add(acc, p), acc)
-        return acc
+        """Double-and-add over an MSB-first bit array, bits: (nbits, lanes)
+        in {0, 1}, lanes a multiple of p's n points; lane l multiplies point
+        l % n. One K3d launch on the card (its plain loop on the CPU)."""
+        from ..kernels import point_kernels
+
+        return point_kernels.scalar_mul_bits(p, bits)
 
     def tree_sum(self, p: JacobianPoints, groups: int = 1) -> JacobianPoints:
         """Log-depth sum over the lane axis, viewed as `groups` contiguous

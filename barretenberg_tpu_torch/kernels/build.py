@@ -26,7 +26,7 @@ from ..config import BUILD_DIR
 from ..fields.params import FieldParams, R_INTERNAL
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("field_kernels", "butterfly", "point_kernels", "msm_kernels")
+SOURCES = ("field_kernels", "butterfly", "point_kernels", "point_chains", "msm_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,6 +121,10 @@ _SIGNATURES = {
     "point_kernels": {
         "bb_point_dbl": [_VP] * 6 + [_L, _VP, _VP],
         "bb_point_add": [_I] + [_VP] * 12 + [_L, _VP, _VP],
+    },
+    "point_chains": {
+        "bb_scalar_mul_bits": [_VP, _VP, _VP, _L, _VP, _I] + [_VP] * 4 + [_L, _VP, _VP],
+        "bb_fixed_base": [_VP, _VP, _I, _I] + [_VP] * 4 + [_L, _VP, _VP],
     },
     "msm_kernels": {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],

@@ -59,10 +59,9 @@ from ..fields.params import FQ_PARAMS, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
-from .point_kernels import plain_add, plain_dbl, plain_mixed_add
+from .point_kernels import plain_add, plain_dbl, plain_mixed_add, point_table
 
 L = NUM_LIMBS
-ROW_WORDS = 20  # csrc/msm_kernels.cu: one point-table row
 
 # Kernel launches since the counters were last reset (reset_counts).
 launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "window_combine": 0}
@@ -282,19 +281,6 @@ def _check(t: torch.Tensor, shape: tuple, dtype, device) -> torch.Tensor:
     if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"MSM kernel takes {shape} {dtype} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     return t.contiguous()
-
-
-def point_table(px, py, pinf) -> torch.Tensor:
-    """K3a's point table: one 80-byte row per entry - x and y as 9 x 30-bit
-    words each (two 15-bit limbs per word), the infinity flag, a pad word."""
-    def words(t):
-        return (t[0::2] | (t[1::2] << 15)).t()
-
-    table = torch.zeros((px.shape[1], ROW_WORDS), dtype=torch.int32, device=px.device)
-    table[:, :9] = words(px)
-    table[:, 9:18] = words(py)
-    table[:, 18] = pinf
-    return table
 
 
 def block_offsets(entries: SortedRounds, block: int) -> torch.Tensor:

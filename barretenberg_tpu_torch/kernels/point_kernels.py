@@ -1,13 +1,14 @@
-"""K3: the complete masked G1 Jacobian group law over Fq.
+"""K3: the complete masked G1 Jacobian group law over Fq, and its two
+lane-wise chains as one launch each (K3d, K3e).
 
 Replaces the JAX package's Pallas kernels ``kernels/point_kernels.py``
 ``_kernel_fn`` / ``_dbl_rows`` (public ``dbl``, ``add``, ``mixed_add``).
 Source: ``csrc/point_kernels.cu`` (+ ``csrc/point.cuh``, the group law it
-shares with the MSM bucket kernels of ``msm_kernels.py``, and
-``csrc/field.cuh``). On the main path these launches now serve SRS
-generation's fixed-base mixed adds and the small-MSM path
-(``msm/naive.py``: double-and-add over all lanes, then a tree sum); the
-Pippenger MSM's bucket phase and window combine run in ``msm_kernels.py``.
+shares with the MSM bucket kernels of ``msm_kernels.py`` and the chains of
+``csrc/point_chains.cu``, and ``csrc/field.cuh``). On the main path the
+lane-wise launches serve only the small MSM's tree sum (``add``);
+``dbl`` and ``mixed_add`` run inside K3d and K3e, and the Pippenger MSM's
+bucket phase and window combine run in ``msm_kernels.py``.
 
 Each launch computes one point operation per lane - dbl-2009-l,
 add-2007-bl or madd-2007-bl, with lane selects for P == Q (-> doubling),
@@ -22,6 +23,20 @@ every intermediate field element of one operation stays in the thread's
 registers (no spill at 168 registers for ``add``; the ptxas counts are in
 PERF.md), so device memory sees each coordinate once; the rare P == Q
 lanes take the doubling as a branch instead of computing it for every lane.
+
+K3d ``scalar_mul_bits`` (``csrc/point_chains.cu``) replaces the
+``lax.scan`` of the JAX package's ``Curve._scalar_mul_bits``
+(``groups/group.py:298-311``, ``dbl`` and ``mixed_add`` per bit): the
+small-MSM double-and-add, one thread per lane running all 254 steps in
+registers. It is bound by that thread's chain of dependent products, not by
+the card's rates, so its CTAs are one warp each (the lanes spread over the
+SMs) and its products are ``fe_mul_lazy``'s, whose dependent work per digit
+is shorter than ``fe_mul``'s carry chain. K3e ``fixed_base`` replaces the
+``fori_loop`` of ``groups/g1.py:198-210`` (``jnp.take`` + ``mixed_add`` per
+8-bit window): it is bound by operations; each lane walks the 32 windows
+with its sum in registers, reading each table entry as one 80-byte row, and
+skips the adds from and of infinity. Both run the plain loops' point
+operations in their order, so the coordinates are equal limb for limb.
 
 Infinity masks travel as one byte per lane; the wrapper converts to and
 from ``bool``. A CUDA batch always launches the kernel (or raises); a CPU
@@ -38,10 +53,11 @@ from . import build
 from .field_kernels import limb_field
 
 L = NUM_LIMBS
+ROW_WORDS = 20  # csrc/point.cuh: one point-table row
 
 # Kernel launches per op since the counters were last reset (reset_counts),
 # and how many of them ran one lane.
-launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0}
+launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0, "scalar_mul_bits": 0, "fixed_base": 0}
 single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
@@ -142,6 +158,52 @@ def plain_mixed_add(p: JacobianPoints, q: AffinePoints) -> JacobianPoints:
     return _merge(f, p, q.x, q.y, one, q.inf, x3, y3, z3, f.is_zero(h), f.is_zero(r))
 
 
+def _infinity(lanes: int, device) -> JacobianPoints:
+    zero = torch.zeros((L, lanes), dtype=torch.int32, device=device)
+    return JacobianPoints(zero, zero, zero, torch.ones(lanes, dtype=torch.bool, device=device))
+
+
+def _tile(p: AffinePoints, lanes: int) -> AffinePoints:
+    """Lane l of the result is point l % n."""
+    reps = lanes // p.x.shape[1]
+    if reps == 1:
+        return p
+    return AffinePoints(p.x.repeat(1, reps), p.y.repeat(1, reps), p.inf.repeat(reps))
+
+
+def plain_scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
+    """Double-and-add over an MSB-first bit array: bits (nbits, lanes) in
+    {0, 1}, lane l multiplying point l % n of p. Per bit one doubling of
+    every lane and one mixed addition, kept where the bit is set."""
+    f = limb_field(FQ_PARAMS)
+    q = _tile(p, bits.shape[1])
+    acc = _infinity(bits.shape[1], p.x.device)
+    for k in range(bits.shape[0]):
+        acc = plain_dbl(acc)
+        added = plain_mixed_add(acc, q)
+        take = bits[k] > 0
+        acc = JacobianPoints(
+            f.select(take, added.x, acc.x), f.select(take, added.y, acc.y),
+            f.select(take, added.z, acc.z), torch.where(take, added.inf, acc.inf),
+        )
+    return acc
+
+
+def plain_fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
+    """Fixed-base window multiplication: digits (windows, n), table
+    (windows * per_window entries); per window one gather of entry
+    w * per_window + digit and one mixed addition, from infinity."""
+    windows, n = digits.shape
+    per_window = table.x.shape[1] // windows
+    acc = _infinity(n, digits.device)
+    for w in range(windows):
+        idx = digits[w].to(torch.int64) + w * per_window
+        acc = plain_mixed_add(
+            acc, AffinePoints(table.x.index_select(1, idx), table.y.index_select(1, idx), table.inf.index_select(0, idx))
+        )
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -198,6 +260,70 @@ def _launch_add(p: JacobianPoints, q, mixed: bool) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
 
 
+def point_table(px, py, pinf) -> torch.Tensor:
+    """An affine point table as the kernels read it: one 80-byte row per
+    point - x and y as 9 x 30-bit words each (two 15-bit limbs per word),
+    the infinity flag, a pad word."""
+    def words(t):
+        return (t[0::2] | (t[1::2] << 15)).t()
+
+    table = torch.zeros((px.shape[1], ROW_WORDS), dtype=torch.int32, device=px.device)
+    table[:, :9] = words(px)
+    table[:, 9:18] = words(py)
+    table[:, 18] = pinf
+    return table
+
+
+def _launch_scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
+    n, dev = p.x.shape[1], p.x.device
+    if bits.dim() != 2 or bits.device != dev or n == 0 or bits.shape[1] % n:
+        raise ValueError(
+            f"scalar_mul_bits takes (nbits, lanes) bits on {dev} with lanes a multiple of {n}, "
+            f"got {tuple(bits.shape)} on {bits.device}"
+        )
+    nbits, lanes = bits.shape
+    x, y = (_coord(t, n, dev) for t in (p.x, p.y))
+    inf = _mask(p.inf, n, dev)
+    bits = (bits if bits.dtype == torch.uint8 else (bits > 0).to(torch.uint8)).contiguous()
+    ox, oy, oz = (torch.empty((L, lanes), dtype=torch.int32, device=dev) for _ in range(3))
+    oi = torch.empty(lanes, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("point_chains")
+    with torch.cuda.device(dev):
+        err = lib.bb_scalar_mul_bits(
+            x.data_ptr(), y.data_ptr(), inf.data_ptr(), n, bits.data_ptr(), nbits,
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oi.data_ptr(),
+            lanes, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "scalar_mul_bits")
+    _count("scalar_mul_bits", lanes)
+    return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
+
+
+def _launch_fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
+    dev = table.x.device
+    entries = table.x.shape[1]
+    if digits.dtype != torch.uint8 or digits.dim() != 2 or digits.device != dev or entries % digits.shape[0]:
+        raise ValueError(
+            f"fixed_base takes (windows, n) uint8 digits on {dev} and a table of windows x entries, "
+            f"got {tuple(digits.shape)} {digits.dtype} on {digits.device} and {entries} entries"
+        )
+    windows, n = digits.shape
+    rows = point_table(*(_coord(t, entries, dev) for t in (table.x, table.y)), _mask(table.inf, entries, dev))
+    digits = digits.contiguous()
+    ox, oy, oz = (torch.empty((L, n), dtype=torch.int32, device=dev) for _ in range(3))
+    oi = torch.empty(n, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("point_chains")
+    with torch.cuda.device(dev):
+        err = lib.bb_fixed_base(
+            rows.data_ptr(), digits.data_ptr(), windows, entries // windows,
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oi.data_ptr(),
+            n, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "fixed_base")
+    _count("fixed_base", n)
+    return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
@@ -211,3 +337,13 @@ def add(p: JacobianPoints, q: JacobianPoints) -> JacobianPoints:
 
 def mixed_add(p: JacobianPoints, q: AffinePoints) -> JacobianPoints:
     return _launch_add(p, q, mixed=True) if p.x.is_cuda else plain_mixed_add(p, q)
+
+
+def scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
+    """K3d: per lane l, [k_l] p[l % n] from the MSB-first bits (nbits, lanes)."""
+    return _launch_scalar_mul_bits(p, bits) if p.x.is_cuda else plain_scalar_mul_bits(p, bits)
+
+
+def fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
+    """K3e: per lane, the sum over windows w of table[w * per_window + digits[w]]."""
+    return _launch_fixed_base(digits, table) if table.x.is_cuda else plain_fixed_base(digits, table)

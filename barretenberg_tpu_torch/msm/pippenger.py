@@ -46,8 +46,7 @@ SCALAR_BITS = 254
 
 def scalar_digits(scalars_mont: torch.Tensor, c: int) -> torch.Tensor:
     """Internal-Montgomery Fr scalars (18, N) -> (rounds, N) int64 c-bit
-    unsigned window digits of the canonical integer value, LSB window first
-    (used by the naive double-and-add oracle)."""
+    unsigned window digits of the canonical integer value, LSB window first."""
     value = _fr(scalars_mont.device).to_plain(scalars_mont)
     limbs = F.pad(value, (0, 0, 0, 2))
     rounds = -(-SCALAR_BITS // c)

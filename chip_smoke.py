@@ -6,23 +6,30 @@
 builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
 process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
-element) - the MSM bucket kernels and the window combine also on edge cases
-against the host oracle, the field power also against Python's pow -
+element) - the MSM bucket kernels, the window combine and the lane-wise
+point chains (K3d scalar_mul_bits at 16, 3 x 16 and 3 x 2048 lanes, K3e
+fixed_base at 16 and 2^16 lanes) also on edge cases against the host
+oracle, the field power also against Python's pow -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
 against the K2 stage-by-stage path,
-reproduces the pinned n = 16 proof digest on the card, checks a Pippenger
+reproduces the pinned n = 16 proof digest on the card, proves and verifies
+n = 2^11 gates (every commitment a naive MSM), checks a Pippenger
 MSM against the host oracle, and then drives the main path at n = 2^16
 gates: SRS generation, verifier-key preprocessing, `Prover.construct_proof`,
-host `verify_proof`. Launches are counted in three windows - the n = 16
-golden proof (whose small MSMs run the lane-wise point kernels), SRS
-generation, and the 2^16 preprocess + prove + verify - and the run fails if
-any kernel of the path was never launched in them, or if the 2^16 windows
-still run the single-lane chains that K1 pow and K3c window_combine replace
-or the K2 stage launches that K2b replaces. Each phase
-prints one JSON line and any failing phase exits non-zero. Without a CUDA
-device the script exits non-zero and prints no result.
+host `verify_proof`. Launches are counted in four windows - the n = 16
+golden proof and the n = 2^11 SRS generation + proof ("small"), whose MSMs
+are naive MSMs (one K3d launch each), SRS generation at 2^16 (one K3e
+launch), and the 2^16 preprocess + prove + verify - and the run fails if
+any kernel of the path was never launched in them (the lane-wise point dbl
+and mixed_add, which K3d and K3e replace, and K2's stage kernel, which K2b
+replaces, are exempt), if any window runs a lane-wise dbl or mixed_add, a
+K3d launch other than one per naive MSM or a K3e launch other than one per
+SRS generation, or if the 2^16 windows still run the single-lane chains
+that K1 pow and K3c window_combine replace or the K2 stage launches. Each
+phase prints one JSON line and any failing phase exits non-zero. Without a
+CUDA device the script exits non-zero and prints no result.
 
 `--cpu-rehearsal` walks the same control flow at toy sizes on the CPU (plain
 versions only) to find wrong paths and shapes without a card; it never
@@ -47,7 +54,9 @@ from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
 from barretenberg_tpu_torch.fields.params import FQ_PARAMS, FR_MODULUS, FR_PARAMS, R_INTERNAL
 from barretenberg_tpu_torch.groups import AffinePoints, JacobianPoints
 from barretenberg_tpu_torch.groups.g1 import (
+    fixed_base_digits,
     fixed_base_mul,
+    fixed_base_table,
     g1 as get_g1,
     host_to_affine_points,
     jacobian_to_host,
@@ -55,6 +64,7 @@ from barretenberg_tpu_torch.groups.g1 import (
 )
 from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
 from barretenberg_tpu_torch.msm import MSM_PIPPENGER_THRESHOLD, optimal_window, pippenger
+from barretenberg_tpu_torch.msm.naive import scalar_bits
 from barretenberg_tpu_torch.msm.pippenger import glv_entries
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
@@ -79,6 +89,7 @@ POINT_MULS = {"dbl": 7, "add": 16, "mixed_add": 11}
 # coordinate arrays + mask bytes moved per lane (each input once, each output once)
 POINT_BYTES = {"dbl": 6 * ELEM_BYTES, "add": 9 * ELEM_BYTES + 3, "mixed_add": 8 * ELEM_BYTES + 3}
 JAC_BYTES = 3 * ELEM_BYTES + 1  # a Jacobian point with its infinity byte
+ROW_WORDS = point_kernels.ROW_WORDS  # one point-table row (K3a, K3e)
 MSM_BLOCK = 128  # pippenger's default block
 
 REPLACES = {
@@ -90,6 +101,8 @@ REPLACES = {
     "bucket_reduce": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :107",
     "field_pow": "barretenberg_tpu/kernels/field_kernels.py:64 (sqr, mont_mul) in the lax.scan of barretenberg_tpu/fields/montgomery.py:548",
     "window_combine": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl, add) in the fori_loop of barretenberg_tpu/msm/pippenger.py:287-305",
+    "scalar_mul_bits": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl, mixed_add) in the lax.scan of barretenberg_tpu/groups/group.py:298-311",
+    "fixed_base": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) and the jnp.take gathers in the fori_loop of barretenberg_tpu/groups/g1.py:198-210",
 }
 
 
@@ -123,6 +136,17 @@ def time_ms(fn, device, reps: int) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn, device):
+    """One call's result and its milliseconds (device-synchronised)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(nbytes: float, imads: float):
@@ -492,6 +516,114 @@ def check_point_kernels(device, lanes_check: int, shapes: dict, rng, records: li
         })
 
 
+def chain_scalars(n: int, rng) -> list:
+    """Seeded random Fr scalars with the edge values 0, 1, r-1 and 2^253 in
+    front."""
+    vals = rand_values(n, FR_MODULUS, rng)
+    vals[:4] = [0, 1, FR_MODULUS - 1, 1 << 253]
+    return vals
+
+
+def chain_points(device, n: int, rng) -> AffinePoints:
+    """n affine points with edge lanes: lane 1 repeats lane 0's point, lane
+    2 is the point at infinity."""
+    pts = get_g1(device).batch_normalize(fixed_base_mul(rand_values(n, FR_MODULUS, rng), device))
+    x, y, inf = pts.x.clone(), pts.y.clone(), pts.inf.clone()
+    x[:, 1], y[:, 1] = x[:, 0], y[:, 0]
+    inf[2] = True
+    return AffinePoints(x, y, inf)
+
+
+def double_and_add_work(bits: torch.Tensor, pinf: torch.Tensor):
+    """What K3d's input needs per lane: the doublings after the lane's top
+    set bit and the mixed adds of its later set bits (the add at the top
+    bit starts from infinity and needs no product); a lane whose point is at
+    infinity needs none. Returns (products over all lanes, products of the
+    longest lane)."""
+    lanes = bits.shape[1]
+    live = bits.ne(0) & ~pinf.repeat(lanes // pinf.shape[0]).unsqueeze(0)
+    any_bit = live.any(0)
+    top = live.to(torch.int32).argmax(0)
+    dbls = torch.where(any_bit, bits.shape[0] - 1 - top, 0)
+    adds = torch.where(any_bit, live.sum(0) - 1, 0)
+    per_lane = POINT_MULS["dbl"] * dbls + POINT_MULS["mixed_add"] * adds
+    return int(per_lane.sum()), int(per_lane.max())
+
+
+def check_point_chains(device, smb_shapes, fb_lanes: tuple, rng, records: list) -> None:
+    """K3d scalar_mul_bits and K3e fixed_base against their plain versions
+    (exact) on edge lanes, at the main path's shapes: K3d at (points,
+    batches) per shape (lane l reads point l % n, as batched_msm calls it),
+    K3e at each lane count of `fb_lanes`; the first lanes of each also
+    against the host oracle. Timed at the widest shape; K3d also at the
+    narrowest, and with its chain: the products of the longest lane and the
+    time per product of that chain."""
+    fr = get_fr(device)
+    smb = {}
+    for n, b in smb_shapes:
+        pts = chain_points(device, n, rng)
+        ks = chain_scalars(n * b, rng)
+        bits = scalar_bits(fr.encode(ks))
+        got = point_kernels.scalar_mul_bits(pts, bits)
+        want, plain_ms = timed_once(lambda: point_kernels.plain_scalar_mul_bits(pts, bits), device)
+        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if err:
+            fail("kernels", f"scalar_mul_bits disagrees with its plain version at {n} points x {b}")
+        m = 8
+        host_pts = points_to_host(pts)
+        head = JacobianPoints(*(t[..., :m] for t in got))
+        if jacobian_to_host(head) != [host_curve.g1_mul(host_pts[i % n], ks[i]) for i in range(m)]:
+            fail("kernels", f"scalar_mul_bits disagrees with the host oracle at {n} points x {b}")
+        smb[n * b] = (pts, bits, err, plain_ms)
+    lanes = max(smb)
+    pts, bits, err, plain_ms = smb[lanes]
+    n = pts.x.shape[1]
+    products, chain = double_and_add_work(bits, pts.inf)
+    b_ms, b_by = bound(n * (2 * ELEM_BYTES + 1) + bits.numel() + lanes * JAC_BYTES, products * IMAD_PER_FIELD_MUL)
+    ms = time_ms(lambda: point_kernels.scalar_mul_bits(pts, bits), device, 5)
+    small_pts, small_bits = smb[min(smb)][:2]
+    records.append({
+        "name": "scalar_mul_bits", "module": "point", "op": "scalar_mul_bits", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/point_chains.cu", "replaces": REPLACES["scalar_mul_bits"],
+        "shape": [18, lanes], "points": n, "bits": bits.shape[0], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "chain_products": chain, "us_per_chain_product": ms * 1e3 / chain,
+        "small_shape": [18, min(smb)],
+        "small_ms": time_ms(lambda: point_kernels.scalar_mul_bits(small_pts, small_bits), device, 5),
+    })
+
+    table = fixed_base_table(device)
+    fb = {}
+    for n in fb_lanes:
+        ks = chain_scalars(n, rng)
+        ks[4:8] = [255, 256, 1 << 248, ks[8]]  # top digit of a window, next window, top window, repeat
+        digits = fixed_base_digits(ks, device)
+        got = point_kernels.fixed_base(digits, table)
+        want, plain_ms = timed_once(lambda: point_kernels.plain_fixed_base(digits, table), device)
+        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if err:
+            fail("kernels", f"fixed_base disagrees with its plain version at {n} lanes")
+        m = 16
+        head = JacobianPoints(*(t[..., :m] for t in got))
+        if jacobian_to_host(head) != [host_curve.g1_mul(host_curve.G1_GENERATOR, k) for k in ks[:m]]:
+            fail("kernels", f"fixed_base disagrees with the host oracle at {n} lanes")
+        fb[n] = (digits, err, plain_ms)
+    n = max(fb)
+    digits, err, plain_ms = fb[n]
+    live = digits.ne(0)  # table entry 0 of every window is the point at infinity
+    adds = int((live.sum(0) - 1).clamp(min=0).sum())  # the first live window's add is free
+    entries = table.x.shape[1]
+    b_ms, b_by = bound(digits.numel() + entries * 4 * ROW_WORDS + n * JAC_BYTES,
+                       adds * POINT_MULS["mixed_add"] * IMAD_PER_FIELD_MUL)
+    records.append({
+        "name": "fixed_base", "module": "point", "op": "fixed_base", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/point_chains.cu", "replaces": REPLACES["fixed_base"],
+        "shape": [18, n], "windows": digits.shape[0], "table_entries": entries, "max_abs_err": err,
+        "ms": time_ms(lambda: point_kernels.fixed_base(digits, table), device, 20),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+
+
 def msm_edge_inputs(device, m: int, nbuckets: int, rng):
     """Four rounds of bucket entries over m points (a multiple of the block):
     round 0 every digit equal (one bucket spans every block), round 1 every
@@ -672,7 +804,16 @@ def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> No
 COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
 
 
-WINDOWS = ("golden", "srs", "prove")  # the counted windows, in the order they run
+WINDOWS = ("golden", "small", "srs", "prove")  # the counted windows, in the order they run
+
+# Naive-MSM calls of one preprocess + prove below MSM_PIPPENGER_THRESHOLD
+# gates, one K3d launch each: the sigma and selector batches of preprocess,
+# then the wire batch, Z, the quotient batch and the opening batch.
+NAIVE_MSM_CALLS = 6
+# Lane-wise point kernels that run on no main path since K3d and K3e (the
+# kernels phase still holds them against their plain versions), and K2's
+# stage kernel, off the path since K2b.
+OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage")}
 
 
 def reset_counts() -> None:
@@ -698,18 +839,27 @@ def add_counts(parts) -> dict:
 PROVE_TRANSFORMS = {0: 20, 1: 6, 2: 8}
 
 
+def window_faults(counts: dict, naive_calls: int, srs_generations: int) -> list:
+    """What every counted window must show now that K3d and K3e carry the
+    lane-wise chains: no lane-wise point doubling or mixed add, one K3d
+    launch per naive MSM and one K3e launch per SRS generation."""
+    want = {("point", "dbl"): 0, ("point", "mixed_add"): 0,
+            ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations}
+    return [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
+
+
 def chain_faults(counts: dict, log2n: int) -> list:
     """What the 2^16 windows (SRS generation + prove) must show now that
     K1 pow and K3c window_combine carry the Fermat and Horner chains and K2b
-    the FFTs: no lane-wise point doubling or add (every MSM there is a
-    Pippenger MSM), one pow per inversion (7 batch normalisations, the grand
-    product, the Lagrange denominators), one combine per MSM, only the
-    squarings of batch_normalize's zinv^2, no K2 stage launch and exactly the
-    pass plans' K2b launches (at most three per transform)."""
+    the FFTs: no lane-wise point add (every MSM there is a Pippenger MSM),
+    one pow per inversion (7 batch normalisations, the grand product, the
+    Lagrange denominators), one combine per MSM, only the squarings of
+    batch_normalize's zinv^2, no K2 stage launch and exactly the pass plans'
+    K2b launches (at most three per transform)."""
     passes = sum(t * len(fft.fft_plan(log2n + i)) for i, t in PROVE_TRANSFORMS.items())
     if passes > 3 * sum(PROVE_TRANSFORMS.values()):
         return [f"the pass plans take {passes} launches for {sum(PROVE_TRANSFORMS.values())} transforms"]
-    want = {("point", "dbl"): (0, 0), ("point", "add"): (0, 0), ("field", "pow"): (9, 9),
+    want = {("point", "add"): (0, 0), ("field", "pow"): (9, 9),
             ("msm", "window_combine"): (17, 17), ("field", "sqr"): (0, 20),
             ("butterfly", "stage"): (0, 0), ("butterfly", "pass"): (passes, passes)}
     return [f"{mod}.{op}={counts[mod][op]} (want {lo}..{hi})"
@@ -770,11 +920,16 @@ def main() -> int:
     check_butterfly(device, 8 if rehearsal else 16, 6 if rehearsal else log2n + 2, rng, records)
     check_fft_pass(device, (4, 6) if rehearsal else (4, 10),
                    (6, 7, 8) if rehearsal else (log2n, log2n + 1, log2n + 2), (4, 1), rng, records)
-    # lanes per launch: SRS generation's fixed-base mixed adds run over all n
-    # lanes; the golden proof's small MSMs (naive_msm) double and add all
-    # 16 lanes of each MSM at once
+    # lanes per launch of the lane-wise kernels as the path ran them before
+    # K3d and K3e: SRS generation's fixed-base mixed adds over all n lanes,
+    # the golden proof's naive MSMs over 16 lanes (its tree sums still add
+    # 16 lanes)
     point_shapes = {"dbl": 16, "add": 16, "mixed_add": min(lanes, 1 << log2n)}
     check_point_kernels(device, lanes, point_shapes, rng, records)
+    # K3d at the golden proof's 16 and 3 x 16 lanes and the 2^11 prove's 3 x
+    # 2048; K3e at 16 lanes and SRS generation's n
+    smb_shapes = ((16, 1), (16, 3), (32 if rehearsal else 2048, 3))
+    check_point_chains(device, smb_shapes, (16, min(lanes, 1 << log2n)), rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
@@ -792,9 +947,36 @@ def main() -> int:
     digest = keccak256(blob).hex()
     if len(blob) != 800 or digest != GOLDEN_DIGEST or not accepted or tampered_accepted:
         fail("golden", f"bytes={len(blob)} digest={digest} accepted={accepted} tampered_accepted={tampered_accepted}")
+    faults = [] if rehearsal else window_faults(counts["golden"], NAIVE_MSM_CALLS, 1)
+    if faults:
+        fail("golden", f"launches over the n = 16 SRS generation + prove: {faults}")
     emit({"phase": "golden", "ok": True, "bytes": len(blob), "digest": digest})
 
-    # ---- phase 4: MSM against the host oracle ----------------------------
+    # ---- phase 4: the naive-MSM path at its full width (window "small") --
+    # 2^11 gates: the largest power of two whose commitments all take the
+    # naive MSM (K3d); SRS generation + preprocess + prove + verify
+    small_n = 1 << (5 if rehearsal else 11)
+    reset_counts()
+    t0 = time.perf_counter()
+    test_srs(small_n, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    small_srs_s = time.perf_counter() - t0
+    small_timings: dict = {}
+    t0 = time.perf_counter()
+    proof, accepted, tampered_accepted = prove_and_verify(small_n, args.seed, device, small_timings)
+    small_total_s = time.perf_counter() - t0
+    counts["small"], single["small"] = read_counts(), read_single_lane()
+    if not accepted or tampered_accepted:
+        fail("small_prove", f"n={small_n} accepted={accepted} tampered_accepted={tampered_accepted}")
+    faults = [] if rehearsal else window_faults(counts["small"], NAIVE_MSM_CALLS, 1)
+    if faults:
+        fail("small_prove", f"launches over the n = {small_n} SRS generation + prove: {faults}")
+    emit({"phase": "small_prove", "ok": True, "n": small_n, "srs_seconds": small_srs_s,
+          "prove_seconds": sum(small_timings.values()), "phase_seconds": small_timings,
+          "preprocess_prove_verify_seconds": small_total_s, "launches": counts["small"]})
+
+    # ---- phase 5: MSM against the host oracle ----------------------------
     m = 64 if rehearsal else 1 << 12
     curve, fr = get_g1(device), get_fr(device)
     pts = curve.batch_normalize(fixed_base_mul(rand_values(m, FR_MODULUS, rng), device))
@@ -806,10 +988,10 @@ def main() -> int:
         fail("msm_oracle", "pippenger disagrees with host_curve.g1_msm")
     emit({"phase": "msm_oracle", "ok": True, "n": m, "pippenger_seconds": round(t_dev, 3)})
 
-    # ---- phase 5: the slice at a real size --------------------------------
+    # ---- phase 6: the slice at a real size --------------------------------
     # the main path is SRS generation + preprocess + prove + verify (counted
-    # windows "srs" and "prove"); with the golden window, every kernel must
-    # have launched
+    # windows "srs" and "prove"); with the golden and small windows, every
+    # kernel of the path must have launched
     n = 1 << log2n
     reset_counts()
     t0 = time.perf_counter()
@@ -829,13 +1011,14 @@ def main() -> int:
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        # K2's stage kernel is off the main path (K2b runs every FFT's stages);
-        # the kernels phase still holds it against its plain version
         idle = [f"{mod}.{op}" for mod, c in all_counts.items() for op, v in c.items()
-                if v == 0 and (mod, op) != ("butterfly", "stage")]
+                if v == 0 and (mod, op) not in OFF_PATH]
         if idle:
             fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
-        faults = chain_faults(main_counts, log2n) if n >= MSM_PIPPENGER_THRESHOLD else []
+        faults = [f"srs: {f}" for f in window_faults(counts["srs"], 0, 1)]
+        if n >= MSM_PIPPENGER_THRESHOLD:
+            faults += [f"prove: {f}" for f in window_faults(counts["prove"], 0, 0)]
+            faults += chain_faults(main_counts, log2n)
         if faults:
             fail("prove", f"launches over SRS generation + prove: {faults}")
     emit({"phase": "prove", "ok": True, "n": n, "srs_seconds": round(srs_s, 3),

@@ -46,6 +46,7 @@ KERNEL_NAMES = {
     "point.dbl": "point_dbl_kernel", "point.add": "point_add_kernel<false>",
     "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
     "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
+    "point.scalar_mul_bits": "scalar_mul_bits_kernel", "point.fixed_base": "fixed_base_kernel",
 }
 
 
