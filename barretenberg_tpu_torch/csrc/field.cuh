@@ -9,8 +9,8 @@
 // In registers an element is repacked to 9 limbs of 30 bits (two stored
 // limbs each), so R' = 2^(9*30) stays the Montgomery radix and a Hopper
 // thread multiplies with mul.wide.u32 into 64-bit accumulators: one
-// operand-scanning (FIOS) Montgomery multiply is 162 wide multiplies
-// plus 9 for the quotient digits, with a 64-bit carry word between columns.
+// operand-scanning Montgomery multiply is 162 wide multiplies plus 9 for
+// the quotient digits, each column summed in its own 64-bit word.
 // The modulus, -p^-1 mod 2^30 and R' mod p arrive in a FieldConst passed
 // by value to each kernel (param space is a constant bank), filled in by
 // the Python wrapper from the package's FieldParams - nothing is typed in
@@ -134,50 +134,15 @@ __device__ __forceinline__ fe fe_dbl(const fe& a, const FieldConst& fc) {
 }
 
 // Montgomery product a * b * 2^-270 mod p, canonical output.
-// Finely integrated operand scanning: per digit b[i] one pass adds a*b[i]
-// and m*p into the running 10-word accumulator and shifts it down one limb.
-// Bounds: t[j] < 2^30, products < 2^60, so acc < 2^30 + 2^61 + 2^32 < 2^64.
+// Operand scanning with lazy carries: per digit b[i] one pass adds a*b[i]
+// and m*p into nine 64-bit column sums and shifts them down one column;
+// only the lowest column is reduced (its carry goes to the next), so a
+// digit's dependent work is a few instructions, not a 9-limb carry chain,
+// and a thread running a long chain of products waits less on each.
+// Bounds: a, b < p, so limbs are < 2^30 and the top limbs of a, b and p
+// < 2^14; a column's products and carry-in stay below 2^63.4 for both
+// BN254 moduli (tests/test_torch_field_bounds.py checks this bound).
 __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b, const FieldConst& fc) {
-    uint32_t t[FE_LIMBS + 1];
-#pragma unroll
-    for (int k = 0; k <= FE_LIMBS; ++k) t[k] = 0;
-#pragma unroll
-    for (int i = 0; i < FE_LIMBS; ++i) {
-        uint32_t bi = b.v[i];
-        uint64_t acc = (uint64_t)t[0] + (uint64_t)a.v[0] * bi;
-        uint32_t m = ((uint32_t)acc * fc.ninv) & FE_MASK;
-        acc += (uint64_t)m * fc.p[0];  // low 30 bits now zero
-        uint64_t carry = acc >> 30;
-#pragma unroll
-        for (int j = 1; j < FE_LIMBS; ++j) {
-            acc = (uint64_t)t[j] + (uint64_t)a.v[j] * bi + (uint64_t)m * fc.p[j] + carry;
-            t[j - 1] = (uint32_t)acc & FE_MASK;
-            carry = acc >> 30;
-        }
-        acc = (uint64_t)t[FE_LIMBS] + carry;
-        t[FE_LIMBS - 1] = (uint32_t)acc & FE_MASK;
-        t[FE_LIMBS] = (uint32_t)(acc >> 30);
-    }
-    // result < 2p < 2^255, so t[9] == 0
-    fe r;
-#pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = t[k];
-    return fe_cond_sub_p(r, fc);
-}
-
-__device__ __forceinline__ fe fe_sqr(const fe& a, const FieldConst& fc) {
-    return fe_mul(a, a, fc);
-}
-
-// The same product with lazy carries (the value is the same, so the
-// coordinates of every caller stay the same). Each column accumulates in a
-// 64-bit word and only the lowest column is reduced per digit, so a
-// digit's dependent work is ~6 instructions instead of the 9-limb carry
-// chain of fe_mul: a thread running a long dependent chain of products
-// waits less on each one (csrc/point_chains.cu). Bounds: limbs are < 2^30
-// and the top limbs of a, b and p < 2^14, so a column's products and
-// carry-in stay below 2^63.4.
-__device__ __forceinline__ fe fe_mul_lazy(const fe& a, const fe& b, const FieldConst& fc) {
     uint64_t t[FE_LIMBS];  // at digit i, slot j holds column i + j
 #pragma unroll
     for (int k = 0; k < FE_LIMBS; ++k) t[k] = 0;
@@ -202,4 +167,8 @@ __device__ __forceinline__ fe fe_mul_lazy(const fe& a, const fe& b, const FieldC
         carry = v >> 30;
     }
     return fe_cond_sub_p(r, fc);
+}
+
+__device__ __forceinline__ fe fe_sqr(const fe& a, const FieldConst& fc) {
+    return fe_mul(a, a, fc);
 }

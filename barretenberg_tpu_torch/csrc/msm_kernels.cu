@@ -91,13 +91,10 @@ bucket_accumulate_kernel(const uint4* __restrict__ table, const int* __restrict_
     load_row(table, sidx[col], w);
     for (int j = 0; j < block; ++j) {
         fe x, y;
-#pragma unroll
-        for (int k = 0; k < FE_LIMBS; ++k) {
-            x.v[k] = w[k];
-            y.v[k] = w[FE_LIMBS + k];
-        }
+        bool row_inf;
+        unpack_row(w, x, y, row_inf);
         const int dj = d;
-        const bool pinf = w[2 * FE_LIMBS] != 0 || dj == 0;
+        const bool pinf = row_inf || dj == 0;
         if (j + 1 < block) {  // prefetch the next entry while this one computes
             long e = col + (long)(j + 1) * nblocks;
             d = sdig[e];

@@ -18,62 +18,44 @@ struct jac {
     fe x, y, z;
 };
 
-// How the group law multiplies: FiosMul (fe_mul, every kernel's default)
-// or LazyMul (fe_mul_lazy, for the long dependent chains of
-// point_chains.cu). The value is the same either way.
-struct FiosMul {
-    static __device__ __forceinline__ fe mul(const fe& a, const fe& b, const FieldConst& fc) {
-        return fe_mul(a, b, fc);
-    }
-    static __device__ __forceinline__ fe sqr(const fe& a, const FieldConst& fc) { return fe_mul(a, a, fc); }
-};
-
-struct LazyMul {
-    static __device__ __forceinline__ fe mul(const fe& a, const fe& b, const FieldConst& fc) {
-        return fe_mul_lazy(a, b, fc);
-    }
-    static __device__ __forceinline__ fe sqr(const fe& a, const FieldConst& fc) { return fe_mul_lazy(a, a, fc); }
-};
-
 // A Jacobian point with its infinity flag.
 struct jpt {
     fe x, y, z;
     bool inf;
 };
 
-template <class M = FiosMul>
 __device__ __forceinline__ jac jac_dbl(const fe& x, const fe& y, const fe& z, const FieldConst& fc) {
-    fe a = M::sqr(x, fc);
-    fe b = M::sqr(y, fc);
-    fe c = M::sqr(b, fc);
-    fe d = fe_sub(M::sqr(fe_add(x, b, fc), fc), fe_add(a, c, fc), fc);
+    fe a = fe_sqr(x, fc);
+    fe b = fe_sqr(y, fc);
+    fe c = fe_sqr(b, fc);
+    fe d = fe_sub(fe_sqr(fe_add(x, b, fc), fc), fe_add(a, c, fc), fc);
     d = fe_dbl(d, fc);
     fe e = fe_add(fe_dbl(a, fc), a, fc);
-    fe f = M::sqr(e, fc);
+    fe f = fe_sqr(e, fc);
     jac r;
     r.x = fe_sub(f, fe_dbl(d, fc), fc);
-    r.y = fe_sub(M::mul(e, fe_sub(d, r.x, fc), fc),
+    r.y = fe_sub(fe_mul(e, fe_sub(d, r.x, fc), fc),
                  fe_dbl(fe_dbl(fe_dbl(c, fc), fc), fc), fc);
-    r.z = fe_dbl(M::mul(y, z, fc), fc);
+    r.z = fe_dbl(fe_mul(y, z, fc), fc);
     return r;
 }
 
 // P + Q. MIXED: Q is affine and z2 must be the Montgomery one.
-template <bool MIXED, class M = FiosMul>
+template <bool MIXED>
 __device__ __forceinline__ jpt jac_add(const fe& x1, const fe& y1, const fe& z1, bool i1,
                                        const fe& x2, const fe& y2, const fe& z2, bool i2,
                                        const FieldConst& fc) {
-    fe z1z1 = M::sqr(z1, fc);
-    fe u2 = M::mul(x2, z1z1, fc);
-    fe s2 = M::mul(y2, M::mul(z1, z1z1, fc), fc);
+    fe z1z1 = fe_sqr(z1, fc);
+    fe u2 = fe_mul(x2, z1z1, fc);
+    fe s2 = fe_mul(y2, fe_mul(z1, z1z1, fc), fc);
     fe u1, s1, z2z2;
     if (MIXED) {
         u1 = x1;
         s1 = y1;
     } else {
-        z2z2 = M::sqr(z2, fc);
-        u1 = M::mul(x1, z2z2, fc);
-        s1 = M::mul(y1, M::mul(z2, z2z2, fc), fc);
+        z2z2 = fe_sqr(z2, fc);
+        u1 = fe_mul(x1, z2z2, fc);
+        s1 = fe_mul(y1, fe_mul(z2, z2z2, fc), fc);
     }
     fe h = fe_sub(u2, u1, fc);
     fe r = fe_dbl(fe_sub(s2, s1, fc), fc);
@@ -81,23 +63,23 @@ __device__ __forceinline__ jpt jac_add(const fe& x1, const fe& y1, const fe& z1,
 
     fe i, z3;
     if (MIXED) {
-        fe hh = M::sqr(h, fc);
+        fe hh = fe_sqr(h, fc);
         i = fe_dbl(fe_dbl(hh, fc), fc);
-        z3 = fe_sub(M::sqr(fe_add(z1, h, fc), fc), fe_add(z1z1, hh, fc), fc);
+        z3 = fe_sub(fe_sqr(fe_add(z1, h, fc), fc), fe_add(z1z1, hh, fc), fc);
     } else {
-        i = M::sqr(fe_dbl(h, fc), fc);
-        z3 = M::mul(fe_sub(M::sqr(fe_add(z1, z2, fc), fc), fe_add(z1z1, z2z2, fc), fc), h, fc);
+        i = fe_sqr(fe_dbl(h, fc), fc);
+        z3 = fe_mul(fe_sub(fe_sqr(fe_add(z1, z2, fc), fc), fe_add(z1z1, z2z2, fc), fc), h, fc);
     }
-    fe j = M::mul(h, i, fc);
-    fe v = M::mul(u1, i, fc);
-    fe x3 = fe_sub(M::sqr(r, fc), fe_add(j, fe_dbl(v, fc), fc), fc);
-    fe y3 = fe_sub(M::mul(r, fe_sub(v, x3, fc), fc), fe_dbl(M::mul(s1, j, fc), fc), fc);
+    fe j = fe_mul(h, i, fc);
+    fe v = fe_mul(u1, i, fc);
+    fe x3 = fe_sub(fe_sqr(r, fc), fe_add(j, fe_dbl(v, fc), fc), fc);
+    fe y3 = fe_sub(fe_mul(r, fe_sub(v, x3, fc), fc), fe_dbl(fe_mul(s1, j, fc), fc), fc);
 
     bool both = !i1 && !i2;
     bool use_dbl = both && h_zero && r_zero;
     bool cancel = both && h_zero && !r_zero;
     if (use_dbl) {  // rare lane: P == Q
-        jac d = jac_dbl<M>(x1, y1, z1, fc);
+        jac d = jac_dbl(x1, y1, z1, fc);
         x3 = d.x;
         y3 = d.y;
         z3 = d.z;

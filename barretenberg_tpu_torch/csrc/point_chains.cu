@@ -12,10 +12,8 @@
 // copy. Bound by one thread's dependent chain (254 doublings and 254 mixed
 // adds, ~4,600 Montgomery products), not by the card's rates: CTAs are one
 // warp each so that the lanes spread over as many SMs as there are warps,
-// and every product is fe_mul_lazy, whose dependent work per digit is
-// shorter than fe_mul's carry chain (and whose code keeps the loop body in
-// the instruction cache, as fe_mul's did not: tools/ab_torch_product.py
-// times both forms).
+// and the chain's time is set by fe_mul's dependent work per digit
+// (field.cuh's lazy-carry columns keep it short).
 //
 // K3e fixed_base: the fixed-base window multiplication of SRS generation.
 // Per lane, from infinity, for windows w = 0, 1, ...: acc = mixed_add(acc,
@@ -24,16 +22,15 @@
 // point at infinity leaves acc as it is, so both skip their arithmetic (the
 // first window's add is always one of them) and the coordinates stay the
 // plain loop's. Bound by operations (11 products per add at 2^16 lanes):
-// the accumulator stays in registers across all windows, each table entry
-// is one 80-byte row (four 16-byte loads) of a table that fits in L2, and
-// the products are fe_mul_lazy's (fewer instructions than fe_mul's).
+// the accumulator stays in registers across all windows, and each table
+// entry is one 80-byte row (four 16-byte loads) of a table that fits in L2.
 //
 // Both carry their sum in registers from one iteration to the next. nvcc
 // 12.9's cicc crashes (segmentation fault) on some loops that carry
-// jac_add's result so; built with fe_mul, on a conditional jac_add<true>
-// whose first operand's infinity flag is the carried one (K3d with the add
-// under `if (bit)`, K3e with the add under `if (!inf)` alone). The forms
-// below build; K3c (msm_kernels.cu) passes its sum through memory instead.
+// jac_add's result so: on a conditional jac_add<true> whose first
+// operand's infinity flag is the carried one (K3d with the add under
+// `if (bit)`, K3e with the add under `if (!inf)` alone). The forms below
+// build; K3c (msm_kernels.cu) passes its sum through memory instead.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
@@ -59,11 +56,11 @@ scalar_mul_bits_kernel(const uint32_t* __restrict__ px, const uint32_t* __restri
     acc.inf = true;
 #pragma unroll 1
     for (int k = 0; k < nbits; ++k) {
-        jac d = jac_dbl<LazyMul>(acc.x, acc.y, acc.z, fc);
+        jac d = jac_dbl(acc.x, acc.y, acc.z, fc);
         acc.x = d.x;
         acc.y = d.y;
         acc.z = d.z;
-        const jpt a = jac_add<true, LazyMul>(acc.x, acc.y, acc.z, acc.inf, x2, y2, one, i2, fc);
+        const jpt a = jac_add<true>(acc.x, acc.y, acc.z, acc.inf, x2, y2, one, i2, fc);
         const bool bit = bits[(long)k * lanes + lane] != 0;
         acc.x = fe_select(bit, a.x, acc.x);
         acc.y = fe_select(bit, a.y, acc.y);
@@ -98,7 +95,7 @@ fixed_base_kernel(const uint4* __restrict__ table, const uint8_t* __restrict__ d
             acc.z = one;
             acc.inf = false;
         } else {
-            acc = jac_add<true, LazyMul>(acc.x, acc.y, acc.z, false, x, y, one, false, fc);
+            acc = jac_add<true>(acc.x, acc.y, acc.z, false, x, y, one, false, fc);
         }
     }
     store_pt(out, lane, n, acc);

@@ -68,9 +68,12 @@ def _fixed_base_table_host() -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def fixed_base_table(device: torch.device) -> AffinePoints:
-    """The (18, 32 * 256) window table on one device, built once."""
-    return host_to_affine_points(list(_fixed_base_table_host()), device)
+def fixed_base_table(device: torch.device) -> torch.Tensor:
+    """The 32 * 256 window table on one device, built once, as the
+    (8192, 20) point rows K3e reads (``point_kernels.point_table``)."""
+    from ..kernels import point_kernels
+
+    return point_kernels.point_table(*host_to_affine_points(list(_fixed_base_table_host()), device))
 
 
 def fixed_base_digits(scalars: list, device=None) -> torch.Tensor:

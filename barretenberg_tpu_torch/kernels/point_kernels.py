@@ -30,8 +30,8 @@ K3d ``scalar_mul_bits`` (``csrc/point_chains.cu``) replaces the
 small-MSM double-and-add, one thread per lane running all 254 steps in
 registers. It is bound by that thread's chain of dependent products, not by
 the card's rates, so its CTAs are one warp each (the lanes spread over the
-SMs) and its products are ``fe_mul_lazy``'s, whose dependent work per digit
-is shorter than ``fe_mul``'s carry chain. K3e ``fixed_base`` replaces the
+SMs), and ``fe_mul``'s lazy-carry columns keep each product's dependent work
+short. K3e ``fixed_base`` replaces the
 ``fori_loop`` of ``groups/g1.py:198-210`` (``jnp.take`` + ``mixed_add`` per
 8-bit window): it is bound by operations; each lane walks the 32 windows
 with its sum in registers, reading each table entry as one 80-byte row, and
@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fields.params import FQ_PARAMS, NUM_LIMBS
+from ..fields.params import FQ_PARAMS, LIMB_MASK, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
@@ -189,18 +189,17 @@ def plain_scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints
     return acc
 
 
-def plain_fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
-    """Fixed-base window multiplication: digits (windows, n), table
-    (windows * per_window entries); per window one gather of entry
-    w * per_window + digit and one mixed addition, from infinity."""
+def plain_fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoints:
+    """Fixed-base window multiplication: digits (windows, n), rows the
+    window table as ``point_table`` rows (windows * per_window entries); per
+    window one gather of entry w * per_window + digit and one mixed
+    addition, from infinity."""
     windows, n = digits.shape
-    per_window = table.x.shape[1] // windows
+    per_window = rows.shape[0] // windows
     acc = _infinity(n, digits.device)
     for w in range(windows):
         idx = digits[w].to(torch.int64) + w * per_window
-        acc = plain_mixed_add(
-            acc, AffinePoints(table.x.index_select(1, idx), table.y.index_select(1, idx), table.inf.index_select(0, idx))
-        )
+        acc = plain_mixed_add(acc, row_points(rows.index_select(0, idx)))
     return acc
 
 
@@ -274,6 +273,15 @@ def point_table(px, py, pinf) -> torch.Tensor:
     return table
 
 
+def row_points(rows: torch.Tensor) -> AffinePoints:
+    """``point_table`` rows back to planar affine points."""
+    def limbs(w):
+        w = w.t()
+        return torch.stack((w & LIMB_MASK, w >> 15), 1).reshape(L, -1)
+
+    return AffinePoints(limbs(rows[:, :9]), limbs(rows[:, 9:18]), rows[:, 18] != 0)
+
+
 def _launch_scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
     n, dev = p.x.shape[1], p.x.device
     if bits.dim() != 2 or bits.device != dev or n == 0 or bits.shape[1] % n:
@@ -299,16 +307,17 @@ def _launch_scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoin
     return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
 
 
-def _launch_fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
-    dev = table.x.device
-    entries = table.x.shape[1]
+def _launch_fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoints:
+    dev = rows.device
+    entries = rows.shape[0]
+    if rows.dtype != torch.int32 or rows.shape != (entries, ROW_WORDS) or not rows.is_contiguous():
+        raise ValueError(f"fixed_base takes (entries, {ROW_WORDS}) int32 point_table rows, got {tuple(rows.shape)}")
     if digits.dtype != torch.uint8 or digits.dim() != 2 or digits.device != dev or entries % digits.shape[0]:
         raise ValueError(
             f"fixed_base takes (windows, n) uint8 digits on {dev} and a table of windows x entries, "
             f"got {tuple(digits.shape)} {digits.dtype} on {digits.device} and {entries} entries"
         )
     windows, n = digits.shape
-    rows = point_table(*(_coord(t, entries, dev) for t in (table.x, table.y)), _mask(table.inf, entries, dev))
     digits = digits.contiguous()
     ox, oy, oz = (torch.empty((L, n), dtype=torch.int32, device=dev) for _ in range(3))
     oi = torch.empty(n, dtype=torch.uint8, device=dev)
@@ -344,6 +353,6 @@ def scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
     return _launch_scalar_mul_bits(p, bits) if p.x.is_cuda else plain_scalar_mul_bits(p, bits)
 
 
-def fixed_base(digits: torch.Tensor, table: AffinePoints) -> JacobianPoints:
-    """K3e: per lane, the sum over windows w of table[w * per_window + digits[w]]."""
-    return _launch_fixed_base(digits, table) if table.x.is_cuda else plain_fixed_base(digits, table)
+def fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoints:
+    """K3e: per lane, the sum over windows w of rows[w * per_window + digits[w]]."""
+    return _launch_fixed_base(digits, rows) if rows.is_cuda else plain_fixed_base(digits, rows)

@@ -7,9 +7,9 @@ builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
 process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
 element) - the MSM bucket kernels, the window combine and the lane-wise
-point chains (K3d scalar_mul_bits at 16, 3 x 16 and 3 x 2048 lanes, K3e
-fixed_base at 16 and 2^16 lanes) also on edge cases against the host
-oracle, the field power also against Python's pow -
+point chains (K3d scalar_mul_bits at 16, 3 x 16, 3 x 2048 and 5 x 2048
+lanes, K3e fixed_base at 16 and 2^16 lanes) also on edge cases against the
+host oracle, the field power also against Python's pow -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
@@ -612,7 +612,7 @@ def check_point_chains(device, smb_shapes, fb_lanes: tuple, rng, records: list) 
     digits, err, plain_ms = fb[n]
     live = digits.ne(0)  # table entry 0 of every window is the point at infinity
     adds = int((live.sum(0) - 1).clamp(min=0).sum())  # the first live window's add is free
-    entries = table.x.shape[1]
+    entries = table.shape[0]
     b_ms, b_by = bound(digits.numel() + entries * 4 * ROW_WORDS + n * JAC_BYTES,
                        adds * POINT_MULS["mixed_add"] * IMAD_PER_FIELD_MUL)
     records.append({
@@ -927,8 +927,10 @@ def main() -> int:
     point_shapes = {"dbl": 16, "add": 16, "mixed_add": min(lanes, 1 << log2n)}
     check_point_kernels(device, lanes, point_shapes, rng, records)
     # K3d at the golden proof's 16 and 3 x 16 lanes and the 2^11 prove's 3 x
-    # 2048; K3e at 16 lanes and SRS generation's n
-    smb_shapes = ((16, 1), (16, 3), (32 if rehearsal else 2048, 3))
+    # 2048 and 5 x 2048 (its widest batch, preprocess's selectors); K3e at
+    # 16 lanes and SRS generation's n
+    small = 32 if rehearsal else 2048
+    smb_shapes = ((16, 1), (16, 3), (small, 3), (small, 5))
     check_point_chains(device, smb_shapes, (16, min(lanes, 1 << log2n)), rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]

@@ -112,3 +112,11 @@ def test_fixed_base_mul_matches_jax_and_host(xla_path):
     got = fixed_base_mul(ks, "cpu")
     assert _same_points(got, j_fixed_base_mul(ks))
     assert jacobian_to_host(got) == [host_curve.g1_mul(host_curve.G1_GENERATOR, k) for k in ks]
+
+
+def test_point_table_rows_round_trip(data):
+    """K3e's row layout (point_table) unpacks to the planar points it came
+    from, infinity flag included."""
+    tpts = data[3]
+    back = point_kernels.row_points(point_kernels.point_table(*tpts))
+    assert all(torch.equal(a, b) for a, b in zip(back, tpts))
