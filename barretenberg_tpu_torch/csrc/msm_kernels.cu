@@ -18,6 +18,20 @@
 // point operation is the one the plain version does on that lane, in the
 // same order, so the coordinates are equal limb for limb.
 //
+// K3b-wide bucket_reduce_wide: the same function for bucket sets too large
+// for one CTA - the precomputed-table MSM puts all of its rounds into one
+// set (14,848 partials at 2^16 points against 1,536 per round). The set's
+// partials are cut at bucket boundaries into ranges of `range_buckets`
+// buckets, one CTA each; a bucket is never split. No add of the segmented
+// scan crosses a segment start, so a range that starts at a segment start
+// gives each lane the value the scan over the whole set gives it, and only
+// each segment's last lane is kept: a CTA computes just the lanes that feed
+// it (at level i those whose distance to their segment's end is a multiple
+// of 2^(i+1)), s - 1 adds for a segment of s partials, in place. It then
+// writes every bucket of its range (its merged sum, or infinity), and the
+// last CTA of the set to finish (a counter per set) runs the two suffix
+// scans over the set's buckets as K3b does.
+//
 // K3c window_combine: the Horner combine of the rounds' window sums,
 // most significant first - c doublings of the running sum, then one add of
 // the next window - on one thread, in one launch. The chain is serial, and
@@ -223,6 +237,112 @@ bucket_reduce_kernel(const int* __restrict__ cd, Pts in0, Pts ping, Pts pong, Pt
 }
 
 // ---------------------------------------------------------------------------
+// K3b-wide
+// ---------------------------------------------------------------------------
+// First index in [lo, hi) whose bucket is >= v (hi if none); c is sorted.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ c, int lo, int hi, int v) {
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (c[mid] < v)
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    return lo;
+}
+
+// cd: (sets, nslots) bucket of each partial, sorted within a set (dead
+// slots, bucket nbuckets, last). in0: the partials. mid: a buffer like in0
+// for the merge's partial sums; bk0/bk1: (18, sets * nbuckets) bucket
+// buffers; done: (sets,) zeroed counters. out: (18, sets) window sums.
+// Grid: (ceil(nbuckets / range_buckets), sets).
+__global__ void __launch_bounds__(REDUCE_THREADS, 1)
+bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0, Pts bk1, Pts out,
+                          unsigned* __restrict__ done, int sets, int nslots, int nbuckets,
+                          int range_buckets, FieldConst fc) {
+    __shared__ int range[2];
+    __shared__ bool last;
+    const int s = blockIdx.y;
+    const int* c = cd + (long)s * nslots;
+    const long ps = (long)sets * nslots, pb = (long)s * nslots;
+    const long bs = (long)sets * nbuckets, bb = (long)s * nbuckets;
+    const int b0 = blockIdx.x * range_buckets, b1 = min(nbuckets, b0 + range_buckets);
+    if (threadIdx.x == 0) {
+        range[0] = lower_bound(c, 0, nslots, b0);
+        range[1] = lower_bound(c, range[0], nslots, b1);
+    }
+    __syncthreads();
+    const int lo = range[0], hi = range[1];
+
+    // (1) merge each bucket's partials: level i adds lane t - 2^i into lane
+    // t for the lanes t >= first + 2^i with end - t a multiple of 2^(i+1).
+    // Lane `first` is never written, and every other lane read at level i
+    // was written at level 0, so reads go to in0 only at level 0 and for
+    // the segment's first lane.
+    const int levels = bit_length(hi - lo - 1);
+    for (int i = 0; i < levels; ++i) {
+        const int d = 1 << i;
+        for (int t = lo + threadIdx.x; t < hi; t += blockDim.x) {
+            const int b = c[t];
+            const int first = lower_bound(c, lo, t, b);
+            const int end = lower_bound(c, t, hi, b + 1) - 1;
+            if (t - first < d || ((end - t) & (2 * d - 1)) != 0) continue;
+            const jpt p = load_pt_cg(i == 0 ? in0 : mid, pb + t, ps);
+            const jpt q = load_pt_cg(i == 0 || t - d == first ? in0 : mid, pb + t - d, ps);
+            store_pt(mid, pb + t, ps, jac_add<false>(p.x, p.y, p.z, p.inf, q.x, q.y, q.z, q.inf, fc));
+        }
+        __syncthreads();
+    }
+
+    // (2) every bucket of the range: its segment's last lane, or infinity
+    // with zero coordinates when it has no partial
+    for (int b = b0 + threadIdx.x; b < b1; b += blockDim.x) {
+        const int first = lower_bound(c, lo, hi, b);
+        jpt v;
+        if (first == hi || c[first] != b) {
+            v.x = v.y = v.z = fe_zero();
+            v.inf = true;
+        } else {
+            const int end = lower_bound(c, first, hi, b + 1) - 1;
+            v = load_pt_cg(end == first ? in0 : mid, pb + end, ps);
+        }
+        store_pt(bk0, bb + b, bs, v);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(done + s, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+
+    // (3)-(4) the last CTA of the set: the full first suffix scan, then the
+    // second only for the lanes that feed lane 0 (in place), as in K3b
+    const int sc_levels = max(1, bit_length(nbuckets - 1));
+    for (int step = 0; step < 2 * sc_levels; ++step) {
+        const bool lane0 = step >= sc_levels;
+        const int i = lane0 ? step - sc_levels : step;
+        const Pts src = lane0 ? (((sc_levels - 1) & 1) ? bk0 : bk1) : ((i & 1) ? bk1 : bk0);
+        const Pts dst = lane0 ? src : ((i & 1) ? bk0 : bk1);
+        const int d = 1 << i;
+        const int work = lane0 ? (nbuckets + 2 * d - 1) / (2 * d) : nbuckets;
+        for (int t = threadIdx.x; t < work; t += blockDim.x) {
+            const int lane = lane0 ? t * 2 * d : t;
+            jpt p = load_pt_cg(src, bb + lane, bs);
+            if (lane + d < nbuckets) {
+                const jpt q = load_pt_cg(src, bb + lane + d, bs);
+                p = jac_add<false>(p.x, p.y, p.z, p.inf, q.x, q.y, q.z, q.inf, fc);
+            }
+            store_pt(dst, bb + lane, bs, p);
+        }
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        const Pts fin = ((sc_levels - 1) & 1) ? bk0 : bk1;
+        store_pt(out, s, sets, load_pt_cg(fin, bb, bs));
+    }
+}
+
+// ---------------------------------------------------------------------------
 // K3c
 // ---------------------------------------------------------------------------
 // win: (18, rounds) window sums (lane r = round r), as K3b writes them.
@@ -297,6 +417,33 @@ extern "C" int bb_bucket_reduce(const void* cd, const void* px, const void* py, 
     bucket_reduce_kernel<<<rounds, REDUCE_THREADS, smem, (cudaStream_t)stream>>>(
         (const int*)cd, in0, ping, pong, bk0, bk1, out, rounds, nslots, nbuckets,
         field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+// scratch32: 3 x 18 x sets x nslots words (the merge's buffer), then 6 x
+// 18 x sets x nbuckets (two bucket buffers); scratch8: sets x (nslots + 2 x
+// nbuckets) flag bytes; done: sets zeroed words.
+extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void* py, const void* pz,
+                                     const void* pinf, void* scratch32, void* scratch8, void* done,
+                                     void* ox, void* oy, void* oz, void* oinf, int sets, int nslots,
+                                     int nbuckets, int range_buckets, const uint32_t* consts,
+                                     void* stream) {
+    if (sets <= 0) return 0;
+    if (nslots <= 0 || nbuckets <= 0 || range_buckets <= 0) return (int)cudaErrorInvalidValue;
+    const long ps = 18L * sets * nslots, bs = 18L * sets * nbuckets;
+    uint32_t* w = (uint32_t*)scratch32;
+    uint8_t* f = (uint8_t*)scratch8;
+    Pts in0 = {(uint32_t*)px, (uint32_t*)py, (uint32_t*)pz, (uint8_t*)pinf};
+    Pts mid = {w, w + ps, w + 2 * ps, f};
+    uint32_t* wb = w + 3 * ps;
+    uint8_t* fb = f + (long)sets * nslots;
+    Pts bk0 = {wb, wb + bs, wb + 2 * bs, fb};
+    Pts bk1 = {wb + 3 * bs, wb + 4 * bs, wb + 5 * bs, fb + (long)sets * nbuckets};
+    Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
+    const dim3 grid((unsigned)((nbuckets + range_buckets - 1) / range_buckets), (unsigned)sets);
+    bucket_reduce_wide_kernel<<<grid, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int*)cd, in0, mid, bk0, bk1, out, (unsigned*)done, sets, nslots, nbuckets,
+        range_buckets, field_const_from_host(consts));
     return (int)cudaGetLastError();
 }
 

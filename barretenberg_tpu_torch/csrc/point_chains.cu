@@ -25,7 +25,17 @@
 // the accumulator stays in registers across all windows, and each table
 // entry is one 80-byte row (four 16-byte loads) of a table that fits in L2.
 //
-// Both carry their sum in registers from one iteration to the next. nvcc
+// K3f table_rows: the rows of the precomputed Pippenger table, row r
+// holding 2^(r c) P. One thread per point runs all (rows - 1) * c
+// doublings from the affine point (z = one), the plain loop's doublings in
+// its order with the infinity flag left as it is, and stores the Jacobian
+// point after every c of them. Bound by operations ((rows - 1) * c * 7
+// products per lane); each lane's chain is long (130 doublings at 2^16
+// points), so its CTAs are one warp each, as K3d's, to spread a small
+// table's lanes over the SMs; normalising the rows to affine is left to one
+// batched normalisation outside.
+//
+// All three carry their sum in registers from one iteration to the next. nvcc
 // 12.9's cicc crashes (segmentation fault) on some loops that carry
 // jac_add's result so: on a conditional jac_add<true> whose first
 // operand's infinity flag is the carried one (K3d with the add under
@@ -37,6 +47,7 @@
 
 #define SMB_THREADS 32
 #define FB_THREADS 128
+#define TR_THREADS 32
 
 // px, py: (18, n) affine points, pinf: (n,). bits: (nbits, lanes) bytes,
 // MSB first. out: (18, lanes) Jacobian points.
@@ -101,6 +112,33 @@ fixed_base_kernel(const uint4* __restrict__ table, const uint8_t* __restrict__ d
     store_pt(out, lane, n, acc);
 }
 
+// px, py: (18, n) affine points, pinf: (n,). out: (18, (rows - 1) * n)
+// Jacobian points, row r (1 <= r < rows) at lanes [(r - 1) n, r n).
+__global__ void __launch_bounds__(TR_THREADS)
+table_rows_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                  const uint8_t* __restrict__ pinf, long n, int rows, int c, Pts out,
+                  FieldConst fc) {
+    const long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    jpt acc;
+    acc.x = fe_load(px + lane, n);
+    acc.y = fe_load(py + lane, n);
+    acc.z = fe_one(fc);
+    acc.inf = pinf[lane] != 0;
+    const long stride = (long)(rows - 1) * n;
+#pragma unroll 1
+    for (int r = 1; r < rows; ++r) {
+#pragma unroll 1
+        for (int k = 0; k < c; ++k) {
+            jac d = jac_dbl(acc.x, acc.y, acc.z, fc);
+            acc.x = d.x;
+            acc.y = d.y;
+            acc.z = d.z;
+        }
+        store_pt(out, (long)(r - 1) * n + lane, stride, acc);
+    }
+}
+
 extern "C" int bb_scalar_mul_bits(const void* px, const void* py, const void* pinf, long n,
                                   const void* bits, int nbits, void* ox, void* oy, void* oz,
                                   void* oinf, long lanes, const uint32_t* consts, void* stream) {
@@ -123,6 +161,19 @@ extern "C" int bb_fixed_base(const void* table, const void* digits, int windows,
     const unsigned blocks = (unsigned)((n + FB_THREADS - 1) / FB_THREADS);
     fixed_base_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint4*)table, (const uint8_t*)digits, windows, per_window, out, n,
+        field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bb_table_rows(const void* px, const void* py, const void* pinf, long n, int rows,
+                             int c, void* ox, void* oy, void* oz, void* oinf,
+                             const uint32_t* consts, void* stream) {
+    if (n <= 0 || rows <= 1) return 0;
+    if (c <= 0) return (int)cudaErrorInvalidValue;
+    Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
+    const unsigned blocks = (unsigned)((n + TR_THREADS - 1) / TR_THREADS);
+    table_rows_kernel<<<blocks, TR_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)px, (const uint32_t*)py, (const uint8_t*)pinf, n, rows, c, out,
         field_const_from_host(consts));
     return (int)cudaGetLastError();
 }

@@ -125,10 +125,12 @@ _SIGNATURES = {
     "point_chains": {
         "bb_scalar_mul_bits": [_VP, _VP, _VP, _L, _VP, _I] + [_VP] * 4 + [_L, _VP, _VP],
         "bb_fixed_base": [_VP, _VP, _I, _I] + [_VP] * 4 + [_L, _VP, _VP],
+        "bb_table_rows": [_VP, _VP, _VP, _L, _I, _I] + [_VP] * 4 + [_VP, _VP],
     },
     "msm_kernels": {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
+        "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 4 + [_VP, _VP],
         "bb_window_combine": [_VP] * 8 + [_I, _I, _VP, _VP],
     },
 }

@@ -1,5 +1,7 @@
 """K3a ``bucket_accumulate`` and K3b ``bucket_reduce``: the bucket phase of
-Pippenger's MSM for every round at once, one launch each per MSM; K3c
+Pippenger's MSM for every round at once, one launch each per MSM; K3b-wide
+``bucket_reduce_wide``: K3b's function for bucket sets too large for one
+CTA (the precomputed-table MSM's, all rounds in one set); K3c
 ``window_combine``: the Horner combine of the rounds' window sums, one
 launch per MSM.
 
@@ -34,6 +36,19 @@ zero digit costs no arithmetic; emitted partials are written straight to
 their compacted slot; K3b skips the adds whose result its scan discards and
 computes the second suffix scan only for the lanes that feed the window sum.
 
+K3b-wide replaces the same scans (``:82`` and ``:107``) where the JAX
+package runs them once over the precomputed-table MSM's one bucket set
+(``msm/pippenger.py:517`` ``_accumulate_window``): 14,848 partials at 2^16
+points, ten times a round's, which on one CTA would take ten times as long.
+What the design does about it: the set's partials are cut at bucket
+boundaries into ranges of ``range_buckets`` buckets, one CTA each (a
+bucket is never split); since no add of the segmented scan crosses a
+segment start, a range that starts at one gives every lane the value the
+scan over the whole set gives it, and a CTA computes only the lanes that
+feed each bucket's last lane (s - 1 adds for s partials, in place). The
+last CTA of a set to finish runs K3b's two suffix scans over its buckets.
+B commitments are B sets of one launch.
+
 K3c is bound by neither bytes nor instruction rate: its 140 doublings and 14 adds
 (c = 10, 14 rounds) are one dependent chain of ~1,200 Montgomery products,
 and grouping the sums any other way would change the Jacobian coordinates.
@@ -59,12 +74,15 @@ from ..fields.params import FQ_PARAMS, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
-from .point_kernels import plain_add, plain_dbl, plain_mixed_add, point_table
+from .point_kernels import ROW_WORDS, plain_add, plain_dbl, plain_mixed_add, point_table, row_points
 
 L = NUM_LIMBS
 
 # Kernel launches since the counters were last reset (reset_counts).
-launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "window_combine": 0}
+launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "bucket_reduce_wide": 0, "window_combine": 0}
+
+# K3b-wide: buckets per CTA on the card (at 2^16 points ~29 partials each)
+WIDE_RANGE_BUCKETS = 8
 
 
 def reset_counts() -> None:
@@ -220,10 +238,44 @@ def _suffix_scan(p: JacobianPoints) -> JacobianPoints:
     return p
 
 
-def plain_bucket_sums(partials: Partials, nbuckets: int) -> JacobianPoints:
+def _ks_in_ranges(p: JacobianPoints, cd: torch.Tensor, nbuckets: int, range_buckets: int) -> JacobianPoints:
+    """The segmented scan run on each range of ``range_buckets`` buckets of
+    each set alone, as K3b-wide's CTAs run it. The ranges are the rows of
+    one padded (ranges, width) batch, pad lanes trailing each row as one
+    segment at infinity; dead slots (bucket ``nbuckets``, never scattered)
+    keep their input."""
+    sets, k = cd.shape
+    dev = cd.device
+    nranges = -(-nbuckets // range_buckets)
+    live = (cd < nbuckets).reshape(-1)
+    gid = (cd // range_buckets + torch.arange(sets, device=dev).unsqueeze(1) * nranges).reshape(-1)[live]
+    counts = torch.bincount(gid, minlength=sets * nranges)
+    width = max(1, int(counts.max()))
+    flat = gid * width + torch.arange(gid.numel(), device=dev) - (counts.cumsum(0) - counts)[gid]
+
+    def spread(t, fill):  # (..., sets, k) live slots -> (..., ranges, width)
+        lead = t.shape[:-2]
+        out = torch.full(lead + (sets * nranges * width,), fill, dtype=t.dtype, device=dev)
+        out[..., flat] = t.reshape(lead + (sets * k,))[..., live]
+        return out.reshape(lead + (sets * nranges, width))
+
+    def gather(t, orig):  # the ranges' lanes back into their slots
+        out = orig.reshape(orig.shape[:-2] + (sets * k,)).clone()
+        out[..., live] = t.reshape(t.shape[:-2] + (-1,))[..., flat]
+        return out.reshape(orig.shape)
+
+    cdg = spread(cd, -1)
+    starts = torch.ones_like(cdg, dtype=torch.bool)
+    starts[:, 1:] = cdg[:, 1:] != cdg[:, :-1]
+    q = JacobianPoints(spread(p.x, 0), spread(p.y, 0), spread(p.z, 0), spread(p.inf, True))
+    return JacobianPoints(*(gather(t, o) for t, o in zip(_ks_segmented_scan(q, starts), p)))
+
+
+def plain_bucket_sums(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
     """Merge each bucket's partials (segmented scan) and scatter the merged
     sums to their buckets: (18, R, nbuckets) points, empty buckets at
-    infinity with zero coordinates."""
+    infinity with zero coordinates. ``range_buckets``: merge each range of
+    that many buckets alone (K3b-wide's cut; None: each set whole)."""
     cd = partials.bucket.to(torch.int64)
     rounds, k = cd.shape
     pts = partials.points
@@ -233,7 +285,10 @@ def plain_bucket_sums(partials: Partials, nbuckets: int) -> JacobianPoints:
     )
     starts = torch.ones_like(cd, dtype=torch.bool)
     starts[:, 1:] = cd[:, 1:] != cd[:, :-1]
-    merged = _ks_segmented_scan(p, starts)
+    if range_buckets is None:
+        merged = _ks_segmented_scan(p, starts)
+    else:
+        merged = _ks_in_ranges(p, cd, nbuckets, range_buckets)
     is_end = torch.ones_like(starts)
     is_end[:, :-1] = cd[:, :-1] != cd[:, 1:]
     # Only each round's dump slot `nbuckets` can receive more than one write
@@ -252,11 +307,23 @@ def plain_bucket_sums(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(scatter(merged.x), scatter(merged.y), scatter(merged.z), inf[:, :nbuckets])
 
 
+def _window_sums(buckets: JacobianPoints) -> JacobianPoints:
+    total = _suffix_scan(_suffix_scan(buckets))
+    return JacobianPoints(total.x[:, :, 0], total.y[:, :, 0], total.z[:, :, 0], total.inf[:, 0])
+
+
 def plain_bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     """Each round's window sum sum_m (m+1) S_m from its bucket sums S_m via
     the double-suffix-scan identity: an (18, R) batch, lane r = round r."""
-    total = _suffix_scan(_suffix_scan(plain_bucket_sums(partials, nbuckets)))
-    return JacobianPoints(total.x[:, :, 0], total.y[:, :, 0], total.z[:, :, 0], total.inf[:, 0])
+    return _window_sums(plain_bucket_sums(partials, nbuckets))
+
+
+def plain_bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
+    """K3b-wide's function, each bucket set's window sum, with the set's
+    partials merged in ranges of ``range_buckets`` buckets as the kernel's
+    CTAs merge them (None: uncut). Every range starts at a segment start,
+    so the result does not depend on the cut."""
+    return _window_sums(plain_bucket_sums(partials, nbuckets, range_buckets))
 
 
 def plain_window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
@@ -291,15 +358,14 @@ def block_offsets(entries: SortedRounds, block: int) -> torch.Tensor:
     return (runs.cumsum(dim=1) - runs).to(torch.int32)
 
 
-def _launch_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
-    dev = px.device
-    if not px.is_cuda:
+def _launch_accumulate(entries: SortedRounds, table: torch.Tensor, nbuckets: int, block: int) -> Partials:
+    dev = table.device
+    if not table.is_cuda:
         raise ValueError("bucket_accumulate kernel takes CUDA tensors")
     rounds, m = entries.order.shape
     nblocks = m // block
     k = partial_slots(nbuckets, nblocks, block)
-    px, py = _check(px, (L, m), torch.int32, dev), _check(py, (L, m), torch.int32, dev)
-    table = point_table(px, py, _check(pinf, (m,), torch.bool, dev))
+    table = _check(table, (m, ROW_WORDS), torch.int32, dev)
 
     def cols(t):  # (R, M) -> (R, block, nblocks): step j of a round's walks is one row
         return t.reshape(rounds, nblocks, block).transpose(1, 2).to(torch.int32).contiguous()
@@ -348,6 +414,34 @@ def _launch_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
+def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int) -> JacobianPoints:
+    cd = partials.bucket
+    dev = cd.device
+    if not cd.is_cuda:
+        raise ValueError("bucket_reduce_wide kernel takes CUDA tensors")
+    sets, k = cd.shape
+    cd = _check(cd, (sets, k), torch.int32, dev)
+    p = partials.points
+    x, y, z = (_check(t, (L, sets * k), torch.int32, dev) for t in (p.x, p.y, p.z))
+    inf = _check(p.inf, (sets * k,), torch.bool, dev).view(torch.uint8)
+    scratch32 = torch.empty(3 * L * sets * (k + 2 * nbuckets), dtype=torch.int32, device=dev)
+    scratch8 = torch.empty(sets * (k + 2 * nbuckets), dtype=torch.uint8, device=dev)
+    done = torch.zeros(sets, dtype=torch.int32, device=dev)
+    ox, oy, oz = (torch.empty((L, sets), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.empty(sets, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("msm_kernels")
+    with torch.cuda.device(dev):
+        err = lib.bb_bucket_reduce_wide(
+            cd.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
+            scratch32.data_ptr(), scratch8.data_ptr(), done.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
+            sets, k, nbuckets, range_buckets, build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "bucket_reduce_wide")
+    launch_counts["bucket_reduce_wide"] += 1
+    return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
+
+
 def _launch_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
     dev = windows.x.device
     if not windows.x.is_cuda:
@@ -375,8 +469,15 @@ def _launch_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
 def bucket_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
     """K3a: every round's block walks -> compacted bucket partials."""
     if px.is_cuda:
-        return _launch_accumulate(entries, px, py, pinf, nbuckets, block)
+        return _launch_accumulate(entries, point_table(px, py, pinf), nbuckets, block)
     return plain_bucket_accumulate(entries, px, py, pinf, nbuckets, block)
+
+
+def bucket_accumulate_rows(entries: SortedRounds, rows: torch.Tensor, nbuckets: int, block: int) -> Partials:
+    """K3a on entries given as ``point_table`` rows (built once per table)."""
+    if rows.is_cuda:
+        return _launch_accumulate(entries, rows, nbuckets, block)
+    return plain_bucket_accumulate(entries, *row_points(rows), nbuckets, block)
 
 
 def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
@@ -384,6 +485,15 @@ def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     if partials.bucket.is_cuda:
         return _launch_reduce(partials, nbuckets)
     return plain_bucket_reduce(partials, nbuckets)
+
+
+def bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
+    """K3b-wide: compacted partials of S bucket sets -> each set's window
+    sum, (18, S); ``range_buckets`` buckets per CTA (default
+    ``WIDE_RANGE_BUCKETS``)."""
+    if partials.bucket.is_cuda:
+        return _launch_reduce_wide(partials, nbuckets, range_buckets or WIDE_RANGE_BUCKETS)
+    return plain_bucket_reduce_wide(partials, nbuckets, range_buckets)
 
 
 def window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:

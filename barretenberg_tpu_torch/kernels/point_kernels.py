@@ -1,5 +1,5 @@
-"""K3: the complete masked G1 Jacobian group law over Fq, and its two
-lane-wise chains as one launch each (K3d, K3e).
+"""K3: the complete masked G1 Jacobian group law over Fq, and its three
+lane-wise chains as one launch each (K3d, K3e, K3f).
 
 Replaces the JAX package's Pallas kernels ``kernels/point_kernels.py``
 ``_kernel_fn`` / ``_dbl_rows`` (public ``dbl``, ``add``, ``mixed_add``).
@@ -38,6 +38,15 @@ with its sum in registers, reading each table entry as one 80-byte row, and
 skips the adds from and of infinity. Both run the plain loops' point
 operations in their order, so the coordinates are equal limb for limb.
 
+K3f ``table_rows`` (``csrc/point_chains.cu``) replaces the ``fori_loop`` of
+``dbl`` in the JAX package's ``generate_pippenger_point_table``
+(``msm/pippenger.py:457-458``, c doublings per row, one jitted loop per
+row): the rows 2^(r c) P of the precomputed Pippenger table, one thread per
+point carrying the Jacobian sum through all (rows - 1) * c doublings and
+storing it after every c. It is bound by operations; the rows are then
+normalised to affine in one batched normalisation (affine coordinates are
+unique, so how the JAX package chunks its normalisations cannot show).
+
 Infinity masks travel as one byte per lane; the wrapper converts to and
 from ``bool``. A CUDA batch always launches the kernel (or raises); a CPU
 batch always takes the plain version below.
@@ -57,7 +66,7 @@ ROW_WORDS = 20  # csrc/point.cuh: one point-table row
 
 # Kernel launches per op since the counters were last reset (reset_counts),
 # and how many of them ran one lane.
-launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0, "scalar_mul_bits": 0, "fixed_base": 0}
+launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0, "scalar_mul_bits": 0, "fixed_base": 0, "table_rows": 0}
 single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
@@ -203,6 +212,20 @@ def plain_fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoints
     return acc
 
 
+def plain_table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
+    """Rows 1 .. rows-1 of the precomputed Pippenger table as Jacobian
+    points, (18, (rows - 1) * n), row r at lanes [(r - 1) n, r n): from p
+    with z = one, c lane-wise doublings per row."""
+    f = limb_field(FQ_PARAMS)
+    acc = JacobianPoints(p.x, p.y, f.const_rows(1, p.x), p.inf)
+    out = []
+    for _ in range(rows - 1):
+        for _ in range(c):
+            acc = plain_dbl(acc)
+        out.append(acc)
+    return JacobianPoints(*(torch.cat([getattr(q, k) for q in out], dim=-1) for k in ("x", "y", "z", "inf")))
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -333,6 +356,27 @@ def _launch_fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoin
     return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
 
 
+def _launch_table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
+    n, dev = p.x.shape[1], p.x.device
+    if rows < 2 or c < 1:
+        raise ValueError(f"table_rows takes rows >= 2 and c >= 1, got rows={rows} c={c}")
+    x, y = (_coord(t, n, dev) for t in (p.x, p.y))
+    inf = _mask(p.inf, n, dev)
+    lanes = (rows - 1) * n
+    ox, oy, oz = (torch.empty((L, lanes), dtype=torch.int32, device=dev) for _ in range(3))
+    oi = torch.empty(lanes, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("point_chains")
+    with torch.cuda.device(dev):
+        err = lib.bb_table_rows(
+            x.data_ptr(), y.data_ptr(), inf.data_ptr(), n, rows, c,
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oi.data_ptr(),
+            build.field_consts(FQ_PARAMS), build.current_stream(),
+        )
+    build.check(err, "table_rows")
+    _count("table_rows", n)
+    return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
@@ -356,3 +400,9 @@ def scalar_mul_bits(p: AffinePoints, bits: torch.Tensor) -> JacobianPoints:
 def fixed_base(digits: torch.Tensor, rows: torch.Tensor) -> JacobianPoints:
     """K3e: per lane, the sum over windows w of rows[w * per_window + digits[w]]."""
     return _launch_fixed_base(digits, rows) if rows.is_cuda else plain_fixed_base(digits, rows)
+
+
+def table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
+    """K3f: rows 1 .. rows-1 of the precomputed Pippenger table, row r
+    holding 2^(r c) p, as Jacobian points (18, (rows - 1) * n)."""
+    return _launch_table_rows(p, rows, c) if p.x.is_cuda else plain_table_rows(p, rows, c)

@@ -25,10 +25,21 @@ lanes and no scatter-accumulate:
 
 The rounds are independent until step 4, so batching them changes no
 coordinate: each round's window is the JAX package's per-round
-`_accumulate_window` limb for limb. The fused single-sort, precomputed-table
-and low-memory schedules of the JAX package are not ported yet. Every
-commitment is normalised to affine before it enters a proof, so proof bytes
-do not depend on the schedule.
+`_accumulate_window` limb for limb.
+
+The precomputed-table schedule (`pippenger_precomputed`, the JAX package's
+`msm/pippenger.py:431-534`) commits against a fixed point set through a
+table whose row r holds 2^(rc) P (K3f `table_rows` + one batched
+normalisation): every round's entries then fall into ONE bucket set of
+2^(c-1) buckets, so there is no Horner combine and the set's window sum is
+the MSM. The table also keeps each entry's endomorphism image, the padding
+to a multiple of the block and the K3a row layout, so a commitment computes
+only its digits, one stable sort, K3a and K3b-wide `bucket_reduce_wide`; B
+commitments are B bucket sets of one launch each. `pippenger_low_memory`
+runs fixed-size chunks and adds their sums. The JAX package's fused
+single-sort schedule is not ported. Every commitment is normalised to
+affine before it enters a proof, so proof bytes do not depend on the
+schedule.
 """
 
 from __future__ import annotations
@@ -38,8 +49,9 @@ import torch.nn.functional as F
 
 from ..fields import fq as _fq, fr as _fr
 from ..groups import AffinePoints, JacobianPoints
-from ..kernels import msm_kernels
-from .wnaf import signed_digits, split_scalars, window
+from ..groups.g1 import g1 as _g1
+from ..kernels import msm_kernels, point_kernels
+from .wnaf import HALF_BITS, signed_digits, split_scalars, window
 
 SCALAR_BITS = 254
 
@@ -109,3 +121,117 @@ def pippenger(
         c = optimal_window(n)
     block = min(block, max(16, 2 * n))
     return _pippenger_impl(scalars_mont, points, c, block)
+
+
+class PippengerPointTable:
+    """Per-round shifted point table for a fixed point set: row r holds
+    2^(rc) P_i. Kept as the entries a commitment walks, as K3a's
+    ``point_table`` rows: round r's entries r * 2n + i are row r's point i
+    (i < n) and its endomorphism image (beta x, -y) (i >= n), followed by
+    dead entries up to a multiple of ``block``."""
+
+    def __init__(self, rows: torch.Tensor, c: int, rounds: int, n: int):
+        self.rows = rows  # (>= rounds * 2n, ROW_WORDS) int32
+        self.c, self.rounds, self.n = c, rounds, n
+
+    def affine(self) -> AffinePoints:
+        """The table rows as the JAX package's layout: (18, rounds * n),
+        row r at lanes [r n, (r + 1) n)."""
+        idx = torch.arange(self.rounds * self.n, device=self.rows.device)
+        idx = idx + (idx // self.n) * self.n  # skip each round's endomorphism images
+        return point_kernels.row_points(self.rows.index_select(0, idx))
+
+    def entries(self, block: int) -> torch.Tensor:
+        """The entry rows padded to a multiple of ``block`` (dead entries:
+        infinity, zero coordinates)."""
+        m = self.rounds * 2 * self.n
+        need = -(-m // block) * block
+        have = self.rows.shape[0]
+        if have >= need:
+            return self.rows[:need]
+        zero = torch.zeros((18, need - have), dtype=torch.int32, device=self.rows.device)
+        dead = torch.ones(need - have, dtype=torch.bool, device=self.rows.device)
+        return torch.cat([self.rows, point_kernels.point_table(zero, zero, dead)])
+
+
+def generate_pippenger_point_table(points: AffinePoints, c: int | None = None) -> PippengerPointTable:
+    """The shifted table: rows 1 .. R-1 from one K3f launch (c doublings per
+    row), normalised to affine in one batched normalisation, then each
+    row's endomorphism images and the K3a row layout, padded for
+    ``pippenger_precomputed``'s default block of 128."""
+    n = points.x.shape[1]
+    if c is None:
+        c = optimal_window(n)
+    rounds = -(-HALF_BITS // c) + 1
+    dev = points.x.device
+    aff = _g1(dev).batch_normalize(point_kernels.table_rows(points, rounds, c))
+    x = torch.cat([points.x, aff.x], dim=1).reshape(18, rounds, n)
+    y = torch.cat([points.y, aff.y], dim=1).reshape(18, rounds, n)
+    inf = torch.cat([points.inf, aff.inf]).reshape(rounds, n)
+    fq = _fq(dev)
+    m = rounds * 2 * n
+    pad = -(-m // 128) * 128 - m
+    px = F.pad(torch.cat([x, fq.mul_by_constant(x, fq.params.cube_root)], dim=2).reshape(18, m), (0, pad))
+    py = F.pad(torch.cat([y, fq.neg(y)], dim=2).reshape(18, m), (0, pad))
+    pinf = F.pad(torch.cat([inf, inf], dim=1).reshape(m), (0, pad), value=True)
+    return PippengerPointTable(point_kernels.point_table(px, py, pinf), c, rounds, n)
+
+
+def precomputed_digits(scalars_list, c: int, m: int) -> torch.Tensor:
+    """B scalar vectors (18, N) -> (B, m) signed digits of the table's
+    entries: round r's N digits of the first GLV half, then its N of the
+    second, rounds one after another (the JAX package's [d1 | d2] per
+    round), zero beyond."""
+    b, n = len(scalars_list), scalars_list[0].shape[1]
+    k1, k2 = split_scalars(torch.cat(list(scalars_list), dim=1))
+    d1, d2 = (signed_digits(k, c).reshape(-1, b, n) for k in (k1, k2))
+    digits = torch.cat([d1, d2], dim=2).permute(1, 0, 2).reshape(b, -1)
+    return F.pad(digits, (0, m - digits.shape[1]))
+
+
+def pippenger_precomputed_batch(scalars_list, table: PippengerPointTable, block: int = 128) -> JacobianPoints:
+    """B MSMs against one precomputed table as B bucket sets: one sort, one
+    K3a and one K3b-wide launch. Returns a (B,) JacobianPoints batch."""
+    rows = table.entries(block)
+    nbuckets = 1 << (table.c - 1)
+    entries = msm_kernels.sort_rounds(precomputed_digits(scalars_list, table.c, rows.shape[0]), nbuckets)
+    partials = msm_kernels.bucket_accumulate_rows(entries, rows, nbuckets, block)
+    return msm_kernels.bucket_reduce_wide(partials, nbuckets)
+
+
+def pippenger_precomputed(
+    scalars_mont: torch.Tensor, table: PippengerPointTable, block: int = 128
+) -> JacobianPoints:
+    """MSM against a precomputed table: all rounds share one bucket set.
+    Returns a JacobianPoints batch (1,)."""
+    return pippenger_precomputed_batch([scalars_mont], table, block)
+
+
+def pippenger_low_memory(
+    scalars_mont: torch.Tensor,
+    points: AffinePoints,
+    chunk: int = 1 << 16,
+    c: int | None = None,
+) -> JacobianPoints:
+    """Chunked MSM with bounded peak memory: fixed-size chunks (the last
+    padded with zero scalars and points at infinity, so every chunk has one
+    shape), their sums added in order."""
+    n = scalars_mont.shape[1]
+    if n <= chunk:
+        return pippenger(scalars_mont, points, c=c)
+    if c is None:
+        c = optimal_window(chunk)
+    g1 = _g1(scalars_mont.device)
+    acc = None
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        pad = chunk - (hi - lo)
+        s = F.pad(scalars_mont[:, lo:hi], (0, pad))
+        p = AffinePoints(
+            F.pad(points.x[:, lo:hi], (0, pad)),
+            F.pad(points.y[:, lo:hi], (0, pad)),
+            F.pad(points.inf[lo:hi], (0, pad), value=True),
+        )
+        part = _pippenger_impl(s, p, c, 128)
+        acc = part if acc is None else g1.add(acc, part)
+    return acc

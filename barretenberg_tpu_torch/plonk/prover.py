@@ -30,7 +30,7 @@ from ..config import resolve_device
 from ..fields import fq as _fq, fr as _fr
 from ..fields.params import FR_MODULUS
 from ..groups.g1 import g1 as _g1
-from ..msm import batched_msm, msm
+from ..msm import batched_msm, pippenger_precomputed_batch
 from ..polynomials import arithmetic, fft
 from ..polynomials.domain import get_domain
 from ..transcript import challenges as fs
@@ -116,13 +116,30 @@ class Prover:
         aff = self.g1.batch_normalize(res)
         return list(zip(self.fq.decode(aff.x), self.fq.decode(aff.y)))
 
+    # The JAX prover's range for the precomputed SRS point table (above it
+    # the table's memory, rounds * 2n entries, outgrows the win).
+    _PRECOMP_MAX_N = 1 << 18
+    _PRECOMP_MIN_N = 1 << 10
+
+    def _precomputed_table(self):
+        """The SRS's precomputed Pippenger table for n monomials, when
+        _PRECOMP_MIN_N <= n <= _PRECOMP_MAX_N (built at the first commit,
+        cached on the reference string); else None."""
+        if not self._PRECOMP_MIN_N <= self.n <= self._PRECOMP_MAX_N:
+            return None
+        return self.reference_string.pippenger_table(self.n)
+
     def commit(self, coeffs: torch.Tensor) -> tuple:
         """MSM against the SRS monomials -> host affine point."""
-        return self._to_host_points(msm(coeffs, self.monomials))[0]
+        return self.commit_batch([coeffs])[0]
 
     def commit_batch(self, coeffs_list) -> list:
-        """B commitments as one batched MSM + one normalize + one host sync."""
-        return self._to_host_points(batched_msm(list(coeffs_list), self.monomials))
+        """B commitments as one batched MSM + one normalize + one host sync;
+        through the table, B bucket sets of one K3a and one K3b-wide launch."""
+        table = self._precomputed_table()
+        if table is None:
+            return self._to_host_points(batched_msm(list(coeffs_list), self.monomials))
+        return self._to_host_points(pippenger_precomputed_batch(list(coeffs_list), table))
 
     # ------------------------------------------------------------------
     # Round 1

@@ -48,6 +48,22 @@ class ReferenceString:
         self.monomials = monomials
         self.g2_x = g2_x
         self.degree = degree
+        self._pip_tables: dict = {}
+
+    def pippenger_table(self, n: int):
+        """The precomputed Pippenger table of the first n monomials
+        (msm/pippenger.py::generate_pippenger_point_table), built on the
+        monomials' device at first use and cached per n: commitments against
+        it need one bucket set and no Horner combine."""
+        tab = self._pip_tables.get(n)
+        if tab is None:
+            from ..msm.pippenger import generate_pippenger_point_table
+
+            dev = self.monomials.x.device
+            pts = _g1(dev).take_affine(self.monomials, torch.arange(n, device=dev))
+            tab = generate_pippenger_point_table(pts)
+            self._pip_tables[n] = tab
+        return tab
 
     # -- constructors -------------------------------------------------------
     @staticmethod

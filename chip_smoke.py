@@ -9,25 +9,35 @@ version on the card (exact equality: every value is a canonical field
 element) - the MSM bucket kernels, the window combine and the lane-wise
 point chains (K3d scalar_mul_bits at 16, 3 x 16, 3 x 2048 and 5 x 2048
 lanes, K3e fixed_base at 16 and 2^16 lanes) also on edge cases against the
-host oracle, the field power also against Python's pow -
+host oracle, the field power also against Python's pow, the precomputed
+table's kernels (K3f table_rows, K3a over the table's rows, K3b-wide
+bucket_reduce_wide with its default and forced small bucket ranges) at the
+table shapes of both proves, K3b-wide also on one-bucket and sparse sets
+against the host oracle, and the main MSM through pippenger() and
+pippenger_precomputed() -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
 against the K2 stage-by-stage path,
-reproduces the pinned n = 16 proof digest on the card, proves and verifies
-n = 2^11 gates (every commitment a naive MSM), checks a Pippenger
-MSM against the host oracle, and then drives the main path at n = 2^16
-gates: SRS generation, verifier-key preprocessing, `Prover.construct_proof`,
-host `verify_proof`. Launches are counted in four windows - the n = 16
-golden proof and the n = 2^11 SRS generation + proof ("small"), whose MSMs
-are naive MSMs (one K3d launch each), SRS generation at 2^16 (one K3e
-launch), and the 2^16 preprocess + prove + verify - and the run fails if
-any kernel of the path was never launched in them (the lane-wise point dbl
-and mixed_add, which K3d and K3e replace, and K2's stage kernel, which K2b
-replaces, are exempt), if any window runs a lane-wise dbl or mixed_add, a
-K3d launch other than one per naive MSM or a K3e launch other than one per
-SRS generation, or if the 2^16 windows still run the single-lane chains
-that K1 pow and K3c window_combine replace or the K2 stage launches. Each
+reproduces the pinned n = 16 proof digest on the card (every commitment a
+naive MSM), proves and verifies n = 2^11 gates, checks a Pippenger MSM
+against the host oracle, and then drives the main path at n = 2^16 gates:
+SRS generation, verifier-key preprocessing, `Prover.construct_proof`, host
+`verify_proof`. From 2^10 gates every commitment goes through the SRS's
+precomputed Pippenger table (built by one K3f launch at the first
+commitment), one K3a and one K3b-wide launch per commitment call. Launches
+are counted in four windows - the n = 16 golden proof, the n = 2^11 SRS
+generation + proof ("small"), SRS generation at 2^16 (one K3e launch), and
+the 2^16 preprocess + prove + verify - and the run fails if any kernel of
+the path was never launched in them (the lane-wise point dbl and
+mixed_add, which K3d and K3e replace, K2's stage kernel, which K2b
+replaces, and the per-round K3b and Horner combine K3c, which the table
+replaces on the prover's path, are exempt), if any window runs a lane-wise
+dbl or mixed_add, a K3d launch other than one per naive MSM, a K3e launch
+other than one per SRS generation, K3a / K3b-wide other than once per
+commitment call through the table, any per-round K3b, Horner combine or
+(without naive MSMs) lane-wise add, or if the 2^16 windows run the
+single-lane chains that K1 pow replaces or the K2 stage launches. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
 
@@ -63,10 +73,17 @@ from barretenberg_tpu_torch.groups.g1 import (
     points_to_host,
 )
 from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
-from barretenberg_tpu_torch.msm import MSM_PIPPENGER_THRESHOLD, optimal_window, pippenger
+from barretenberg_tpu_torch.msm import (
+    generate_pippenger_point_table,
+    optimal_window,
+    pippenger,
+    pippenger_precomputed,
+)
 from barretenberg_tpu_torch.msm.naive import scalar_bits
-from barretenberg_tpu_torch.msm.pippenger import glv_entries
+from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
+from barretenberg_tpu_torch.msm.wnaf import HALF_BITS
 from barretenberg_tpu_torch.plonk import preprocess
+from barretenberg_tpu_torch.plonk.prover import Prover
 from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
 from barretenberg_tpu_torch.srs import test_srs
 from barretenberg_tpu_torch.transcript.keccak import keccak256
@@ -103,6 +120,8 @@ REPLACES = {
     "window_combine": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl, add) in the fori_loop of barretenberg_tpu/msm/pippenger.py:287-305",
     "scalar_mul_bits": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl, mixed_add) in the lax.scan of barretenberg_tpu/groups/group.py:298-311",
     "fixed_base": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) and the jnp.take gathers in the fori_loop of barretenberg_tpu/groups/g1.py:198-210",
+    "table_rows": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl) in the fori_loop of barretenberg_tpu/msm/pippenger.py:457-458",
+    "bucket_reduce_wide": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82-104 and :107, over the one bucket set of :517",
 }
 
 
@@ -800,20 +819,182 @@ def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> No
     check_window_combine(device, win, c, rng, records)
 
 
+def table_rows_work(pinf: torch.Tensor, rows: int, c: int) -> int:
+    """Field products K3f's input needs: (rows - 1) * c doublings of every
+    point not at infinity."""
+    return int((~pinf).sum()) * (rows - 1) * c * POINT_MULS["dbl"]
+
+
+def wide_adds(cd: torch.Tensor, nbuckets: int) -> int:
+    """Adds K3b-wide needs for this input: s - 1 per bucket of s partials,
+    then per set the first suffix scan and the lanes of the second that feed
+    the window."""
+    sets = cd.shape[0]
+    live = cd < nbuckets
+    starts = torch.ones_like(live)
+    starts[:, 1:] = cd[:, 1:] != cd[:, :-1]
+    adds = int(live.sum()) - int((live & starts).sum())
+    for i in range(max(1, (nbuckets - 1).bit_length())):
+        d = 1 << i
+        adds += sets * (max(0, nbuckets - d) + -(-max(0, nbuckets - d) // (2 * d)))
+    return adds
+
+
+def one_bucket_digits(m: int, live: int) -> torch.Tensor:
+    """(1, m) digits whose first `live` entries are 3, -3, 3, ... (one
+    bucket holds every partial), the rest 0."""
+    d = torch.zeros((1, m), dtype=torch.int32)
+    d[0, :live:2] = 3
+    d[0, 1:live:2] = -3
+    return d
+
+
+def host_entry_sum(ent: list, digits: list):
+    """sum_e d_e * entry_e on the host (None = infinity): the entries of
+    each digit magnitude summed with their signs, then multiplied once."""
+    sums: dict = {}
+    for p, d in zip(ent, digits):
+        if d and p is not None:
+            sums[abs(d)] = host_curve.g1_add(sums.get(abs(d)), p if d > 0 else host_curve.g1_neg(p))
+    acc = None
+    for mag, q in sums.items():
+        acc = host_curve.g1_add(acc, host_curve.g1_mul(q, mag))
+    return acc
+
+
+def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) -> None:
+    """The precomputed-table MSM's kernels at the table shapes of the small
+    and the main prove (2^log2n_small and 2^log2n points): K3f table_rows
+    against its plain version; K3a (through the table's rows) and K3b-wide
+    over the prove's widest batch, three bucket sets, against their plain
+    versions, K3b-wide also with one and three buckets per CTA; at the small
+    shape one-bucket and sparse sets also against the host oracle; the main
+    MSM through pippenger() and pippenger_precomputed() on the same
+    scalars. All exact."""
+    fr = get_fr(device)
+    runs = {}
+    for k in (log2n_small, log2n):
+        n = 1 << k
+        c = optimal_window(n)
+        rounds, nb = -(-HALF_BITS // c) + 1, 1 << (c - 1)
+        pts = get_g1(device).batch_normalize(fixed_base_mul(rand_values(n, FR_MODULUS, rng), device))
+        pts.inf[2] = True  # a point at infinity
+        got = point_kernels.table_rows(pts, rounds, c)
+        want, tr_plain_ms = timed_once(lambda: point_kernels.plain_table_rows(pts, rounds, c), device)
+        tr_err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if tr_err:
+            fail("kernels", f"table_rows disagrees with its plain version at {n} points")
+        table = generate_pippenger_point_table(pts)
+        rows = table.entries(MSM_BLOCK)
+        m = rows.shape[0]
+        scalars = [chain_scalars(n, rng) for _ in range(3)]
+        enc = [fr.encode(v) for v in scalars]
+        entries = msm_kernels.sort_rounds(precomputed_digits(enc, c, m), nb)
+        partials = msm_kernels.bucket_accumulate_rows(entries, rows, nb, MSM_BLOCK)
+        want_p = msm_kernels.plain_bucket_accumulate(entries, *point_kernels.row_points(rows), nb, MSM_BLOCK)
+        if not (torch.equal(partials.bucket, want_p.bucket) and same(partials.points, want_p.points)):
+            fail("kernels", f"bucket_accumulate over the table's rows disagrees with its plain version at {n} points")
+        want_w, rw_plain_ms = timed_once(lambda: msm_kernels.plain_bucket_reduce_wide(partials, nb), device)
+        rw_err = 0
+        for rb in (None, 1, 3):
+            got_w = msm_kernels.bucket_reduce_wide(partials, nb, rb)
+            rw_err = max(rw_err, max_abs_err(got_w[:3], want_w[:3]), int(got_w.inf.ne(want_w.inf).any()))
+        if rw_err:
+            fail("kernels", f"bucket_reduce_wide disagrees with its plain version at {n} points")
+        if k == log2n and jacobian_to_host(pippenger_precomputed(enc[0], table)) != jacobian_to_host(pippenger(enc[0], pts)):
+            fail("kernels", f"pippenger_precomputed and pippenger disagree at {n} points")
+        runs[k] = dict(pts=pts, rounds=rounds, c=c, nb=nb, rows=rows, entries=entries, partials=partials,
+                       tr_err=tr_err, tr_plain_ms=tr_plain_ms, rw_err=rw_err, rw_plain_ms=rw_plain_ms)
+
+    # edge sets at the small shape, against the host oracle: one bucket holds
+    # every partial (a single CTA merges them); a sparse set of random digits
+    r = runs[log2n_small]
+    rows, nb = r["rows"], r["nb"]
+    m = rows.shape[0]
+    sparse = torch.zeros((1, m), dtype=torch.int32)
+    idx = torch.from_numpy(rng.choice(m, size=256, replace=False))
+    sparse[0, idx] = torch.from_numpy(rng.integers(-nb, nb + 1, size=256)).to(torch.int32)
+    ent = points_to_host(point_kernels.row_points(rows))
+    for case, digits in (("one_bucket", one_bucket_digits(m, m)), ("sparse", sparse)):
+        entries = msm_kernels.sort_rounds(digits.to(device), nb)
+        partials = msm_kernels.bucket_accumulate_rows(entries, rows, nb, MSM_BLOCK)
+        want = msm_kernels.plain_bucket_reduce_wide(partials, nb)
+        for rb in (None, 1):
+            if not same(msm_kernels.bucket_reduce_wide(partials, nb, rb), want):
+                fail("kernels", f"bucket_reduce_wide disagrees with its plain version ({case}, {rb} buckets per CTA)")
+        if jacobian_to_host(want) != [host_entry_sum(ent, digits[0].tolist())]:
+            fail("kernels", f"bucket_reduce_wide disagrees with the host oracle ({case})")
+
+    # timing at the main shape: K3f (also at the small one), K3a over the
+    # table's rows, K3b-wide (also on one set and on a one-bucket set of
+    # every entry)
+    r, rs = runs[log2n], runs[log2n_small]
+    pts, rounds, c, nb, partials = r["pts"], r["rounds"], r["c"], r["nb"], r["partials"]
+    n = pts.x.shape[1]
+    b_ms, b_by = bound(n * (2 * ELEM_BYTES + 1) + (rounds - 1) * n * JAC_BYTES,
+                       table_rows_work(pts.inf, rounds, c) * IMAD_PER_FIELD_MUL)
+    records.append({
+        "name": "table_rows", "module": "point", "op": "table_rows", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/point_chains.cu", "replaces": REPLACES["table_rows"],
+        "shape": [18, n], "rows": rounds, "c": c, "max_abs_err": max(r["tr_err"], rs["tr_err"]),
+        "ms": time_ms(lambda: point_kernels.table_rows(pts, rounds, c), device, 5),
+        "plain_ms": r["tr_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "small_shape": [18, rs["pts"].x.shape[1]],
+        "small_ms": time_ms(lambda: point_kernels.table_rows(rs["pts"], rs["rounds"], rs["c"]), device, 5),
+    })
+    # K3a at the table's shape beside its rounds-batched record
+    entries, rows = r["entries"], r["rows"]
+    sets, m = entries.order.shape
+    acc = next(rec for rec in records if rec["name"] == "bucket_accumulate")
+    acc["table_shape"] = [sets, m, MSM_BLOCK]
+    acc["table_ms"] = time_ms(lambda: msm_kernels.bucket_accumulate_rows(entries, rows, nb, MSM_BLOCK), device, 10)
+    acc["table_bound_ms"], _ = bound(
+        sets * m * 4 + m * 4 * ROW_WORDS + sets * partials.bucket.shape[1] * (JAC_BYTES + 4),
+        accumulate_madds(entries, point_kernels.row_points(rows).inf, nb, MSM_BLOCK)
+        * POINT_MULS["mixed_add"] * IMAD_PER_FIELD_MUL)
+    sets, k = partials.bucket.shape
+    one = msm_kernels.Partials(partials.bucket[:1].contiguous(),
+                               JacobianPoints(*(t[..., :k].contiguous() for t in partials.points)))
+    m = r["rows"].shape[0]
+    heavy = msm_kernels.bucket_accumulate_rows(
+        msm_kernels.sort_rounds(one_bucket_digits(m, m).to(device), nb), r["rows"], nb, MSM_BLOCK)
+    if not same(msm_kernels.bucket_reduce_wide(heavy, nb), msm_kernels.plain_bucket_reduce_wide(heavy, nb)):
+        fail("kernels", "bucket_reduce_wide disagrees with its plain version on a one-bucket set of every entry")
+    b_ms, b_by = bound(sets * k * (JAC_BYTES + 4) + sets * JAC_BYTES,
+                       wide_adds(partials.bucket, nb) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)
+    records.append({
+        "name": "bucket_reduce_wide", "module": "msm", "op": "bucket_reduce_wide", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["bucket_reduce_wide"],
+        "shape": [sets, k, nb], "range_buckets": msm_kernels.WIDE_RANGE_BUCKETS,
+        "max_abs_err": max(r["rw_err"], rs["rw_err"]),
+        "ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(partials, nb), device, 10),
+        "plain_ms": r["rw_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "one_set_ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(one, nb), device, 10),
+        "one_bucket_set_ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(heavy, nb), device, 3),
+        "one_bucket_set_partials": int((heavy.bucket < nb).sum()),
+    })
+
+
 # ---------------------------------------------------------------------------
 COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
 
 
 WINDOWS = ("golden", "small", "srs", "prove")  # the counted windows, in the order they run
 
-# Naive-MSM calls of one preprocess + prove below MSM_PIPPENGER_THRESHOLD
-# gates, one K3d launch each: the sigma and selector batches of preprocess,
-# then the wire batch, Z, the quotient batch and the opening batch.
-NAIVE_MSM_CALLS = 6
-# Lane-wise point kernels that run on no main path since K3d and K3e (the
-# kernels phase still holds them against their plain versions), and K2's
-# stage kernel, off the path since K2b.
-OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage")}
+# Commitment calls of one preprocess + prove: the sigma and selector
+# batches of preprocess, then the wire batch, Z, the quotient batch and the
+# opening batch. Below 2^10 gates (golden) each is a naive MSM, one K3d
+# launch; from 2^10 to 2^18 (small, prove) each goes through the SRS's
+# precomputed table, one K3a and one K3b-wide launch, after one K3f launch
+# that builds the table.
+COMMIT_CALLS = 6
+# Lane-wise point kernels that run on no main path since K3d and K3e, K2's
+# stage kernel, off the path since K2b, and the rounds-batched Pippenger's
+# per-round K3b and Horner combine K3c, off the prover's path since it
+# commits through the precomputed table (the kernels phase still holds each
+# against its plain version).
+OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"),
+            ("msm", "bucket_reduce"), ("msm", "window_combine")}
 
 
 def reset_counts() -> None:
@@ -839,28 +1020,35 @@ def add_counts(parts) -> dict:
 PROVE_TRANSFORMS = {0: 20, 1: 6, 2: 8}
 
 
-def window_faults(counts: dict, naive_calls: int, srs_generations: int) -> list:
-    """What every counted window must show now that K3d and K3e carry the
-    lane-wise chains: no lane-wise point doubling or mixed add, one K3d
-    launch per naive MSM and one K3e launch per SRS generation."""
+def window_faults(counts: dict, naive_calls: int, srs_generations: int, table_calls: int) -> list:
+    """What every counted window must show now that K3d, K3e and K3f carry
+    the lane-wise chains and the prover commits through the precomputed
+    table from 2^10 gates: no lane-wise point doubling or mixed add, one K3d
+    launch per naive MSM, one K3e launch per SRS generation, and per
+    commitment call through the table one K3a and one K3b-wide launch (one
+    K3f for the table), with no per-round K3b, no Horner combine and, where
+    no MSM is naive, no lane-wise add (the naive MSM's tree sums)."""
     want = {("point", "dbl"): 0, ("point", "mixed_add"): 0,
-            ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations}
+            ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations,
+            ("point", "table_rows"): min(1, table_calls), ("msm", "bucket_accumulate"): table_calls,
+            ("msm", "bucket_reduce_wide"): table_calls, ("msm", "bucket_reduce"): 0,
+            ("msm", "window_combine"): 0}
+    if not naive_calls:
+        want[("point", "add")] = 0
     return [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
 
 
 def chain_faults(counts: dict, log2n: int) -> list:
     """What the 2^16 windows (SRS generation + prove) must show now that
-    K1 pow and K3c window_combine carry the Fermat and Horner chains and K2b
-    the FFTs: no lane-wise point add (every MSM there is a Pippenger MSM),
-    one pow per inversion (7 batch normalisations, the grand product, the
-    Lagrange denominators), one combine per MSM, only the squarings of
-    batch_normalize's zinv^2, no K2 stage launch and exactly the pass plans'
-    K2b launches (at most three per transform)."""
+    K1 pow carries the Fermat chain and K2b the FFTs: one pow per inversion
+    (8 batch normalisations - SRS generation, the precomputed table, six
+    commitment calls - the grand product, the Lagrange denominators), only
+    the squarings of batch_normalize's zinv^2, no K2 stage launch and
+    exactly the pass plans' K2b launches (at most three per transform)."""
     passes = sum(t * len(fft.fft_plan(log2n + i)) for i, t in PROVE_TRANSFORMS.items())
     if passes > 3 * sum(PROVE_TRANSFORMS.values()):
         return [f"the pass plans take {passes} launches for {sum(PROVE_TRANSFORMS.values())} transforms"]
-    want = {("point", "add"): (0, 0), ("field", "pow"): (9, 9),
-            ("msm", "window_combine"): (17, 17), ("field", "sqr"): (0, 20),
+    want = {("field", "pow"): (10, 10), ("field", "sqr"): (0, 20),
             ("butterfly", "stage"): (0, 0), ("butterfly", "pass"): (passes, passes)}
     return [f"{mod}.{op}={counts[mod][op]} (want {lo}..{hi})"
             for (mod, op), (lo, hi) in want.items() if not lo <= counts[mod][op] <= hi]
@@ -933,6 +1121,7 @@ def main() -> int:
     smb_shapes = ((16, 1), (16, 3), (small, 3), (small, 5))
     check_point_chains(device, smb_shapes, (16, min(lanes, 1 << log2n)), rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
+    check_precomputed(device, 5 if rehearsal else 11, log2n, rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
         fail("kernels", f"timed kernels disagree with their plain versions: {wrong}")
@@ -949,14 +1138,14 @@ def main() -> int:
     digest = keccak256(blob).hex()
     if len(blob) != 800 or digest != GOLDEN_DIGEST or not accepted or tampered_accepted:
         fail("golden", f"bytes={len(blob)} digest={digest} accepted={accepted} tampered_accepted={tampered_accepted}")
-    faults = [] if rehearsal else window_faults(counts["golden"], NAIVE_MSM_CALLS, 1)
+    faults = [] if rehearsal else window_faults(counts["golden"], COMMIT_CALLS, 1, 0)
     if faults:
         fail("golden", f"launches over the n = 16 SRS generation + prove: {faults}")
     emit({"phase": "golden", "ok": True, "bytes": len(blob), "digest": digest})
 
-    # ---- phase 4: the naive-MSM path at its full width (window "small") --
-    # 2^11 gates: the largest power of two whose commitments all take the
-    # naive MSM (K3d); SRS generation + preprocess + prove + verify
+    # ---- phase 4: a small circuit (window "small") --------------------------
+    # 2^11 gates: SRS generation + preprocess + prove + verify, every
+    # commitment through the SRS's precomputed table (c = 8, 17 rows)
     small_n = 1 << (5 if rehearsal else 11)
     reset_counts()
     t0 = time.perf_counter()
@@ -971,7 +1160,7 @@ def main() -> int:
     counts["small"], single["small"] = read_counts(), read_single_lane()
     if not accepted or tampered_accepted:
         fail("small_prove", f"n={small_n} accepted={accepted} tampered_accepted={tampered_accepted}")
-    faults = [] if rehearsal else window_faults(counts["small"], NAIVE_MSM_CALLS, 1)
+    faults = [] if rehearsal else window_faults(counts["small"], 0, 1, COMMIT_CALLS)
     if faults:
         fail("small_prove", f"launches over the n = {small_n} SRS generation + prove: {faults}")
     emit({"phase": "small_prove", "ok": True, "n": small_n, "srs_seconds": small_srs_s,
@@ -1017,9 +1206,9 @@ def main() -> int:
                 if v == 0 and (mod, op) not in OFF_PATH]
         if idle:
             fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
-        faults = [f"srs: {f}" for f in window_faults(counts["srs"], 0, 1)]
-        if n >= MSM_PIPPENGER_THRESHOLD:
-            faults += [f"prove: {f}" for f in window_faults(counts["prove"], 0, 0)]
+        faults = [f"srs: {f}" for f in window_faults(counts["srs"], 0, 1, 0)]
+        if Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N:
+            faults += [f"prove: {f}" for f in window_faults(counts["prove"], 0, 0, COMMIT_CALLS)]
             faults += chain_faults(main_counts, log2n)
         if faults:
             fail("prove", f"launches over SRS generation + prove: {faults}")

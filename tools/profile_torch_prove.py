@@ -47,6 +47,7 @@ KERNEL_NAMES = {
     "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
     "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
     "point.scalar_mul_bits": "scalar_mul_bits_kernel", "point.fixed_base": "fixed_base_kernel",
+    "point.table_rows": "table_rows_kernel", "msm.bucket_reduce_wide": "bucket_reduce_wide_kernel",
 }
 
 
@@ -79,7 +80,7 @@ def main() -> int:
     n = 1 << args.log2_n
     srs = test_srs(n, device=device)
     arrays = fixture_arrays(n, 7)
-    convert.prover_from_arrays(n, srs, *arrays).construct_proof()  # warm-up: builds tables
+    convert.prover_from_arrays(n, srs, *arrays).construct_proof()  # warm-up: builds tables (domains, the SRS's Pippenger table)
     prover = convert.prover_from_arrays(n, srs, *arrays)
     torch.cuda.synchronize(device)
     for mod in COUNTED.values():

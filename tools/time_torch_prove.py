@@ -10,6 +10,11 @@ Proves the arithmetic-gate fixture circuit that chip_smoke.py proves
 and of a tampered copy) at each size in turn, in one process, after one
 untimed n = 16 prove that builds and loads the kernels, and prints one JSON
 line per size with the card's name and power limit.
+Where the reference string has a precomputed Pippenger table and the prover
+commits through it (2^10 <= n <= 2^18), the table is built after SRS
+generation and timed on its own (`table_seconds`, `table_bytes` on the
+card), so `preprocess_prove_verify_seconds` excludes it; without one (an
+earlier commit) both are null.
 It uses only what chip_smoke.py has offered since the port began, so the same
 file, copied into a checkout of an earlier commit, times that commit the
 same way (compare two commits only in turns within one call on one card).
@@ -55,9 +60,16 @@ def main() -> int:
         n = 1 << log2n
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        test_srs(n, device=device)
+        srs = test_srs(n, device=device)
         torch.cuda.synchronize(device)
         srs_s = time.perf_counter() - t0
+        table_s = table_bytes = None
+        if hasattr(srs, "pippenger_table") and 1 << 10 <= n <= 1 << 18:
+            t0 = time.perf_counter()
+            table = srs.pippenger_table(n)
+            torch.cuda.synchronize(device)
+            table_s = time.perf_counter() - t0
+            table_bytes = table.rows.numel() * table.rows.element_size()
         timings: dict = {}
         t0 = time.perf_counter()
         _, accepted, tampered_accepted = prove_and_verify(n, args.seed, device, timings)
@@ -66,7 +78,8 @@ def main() -> int:
             print(f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}", file=sys.stderr)
             return 1
         print(json.dumps({
-            "n": n, "card": smi, "srs_seconds": srs_s, "prove_seconds": sum(timings.values()),
+            "n": n, "card": smi, "srs_seconds": srs_s, "table_seconds": table_s, "table_bytes": table_bytes,
+            "prove_seconds": sum(timings.values()),
             "phase_seconds": timings, "preprocess_prove_verify_seconds": total_s,
         }), flush=True)
     return 0
