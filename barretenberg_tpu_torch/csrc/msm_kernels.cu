@@ -1,4 +1,5 @@
-// Pippenger's bucket phase for every round of one MSM, one launch each.
+// Pippenger's bucket phase for every round of one MSM, one launch each, and
+// the GLV split and signed digits of an MSM's scalars (K4), one launch.
 //
 // K3a bucket_accumulate: one thread per (round, block of `block` sorted
 // entries) walks its block in bucket order, keeping the running sum in
@@ -22,32 +23,50 @@
 // for one CTA - the precomputed-table MSM puts all of its rounds into one
 // set (14,848 partials at 2^16 points against 1,536 per round). The set's
 // partials are cut at bucket boundaries into ranges of `range_buckets`
-// buckets, one CTA each; a bucket is never split. No add of the segmented
-// scan crosses a segment start, so a range that starts at a segment start
-// gives each lane the value the scan over the whole set gives it, and only
-// each segment's last lane is kept: a CTA computes just the lanes that feed
-// it (at level i those whose distance to their segment's end is a multiple
-// of 2^(i+1)), s - 1 adds for a segment of s partials, in place. It then
-// writes every bucket of its range (its merged sum, or infinity), and the
-// last CTA of the set to finish (a counter per set) runs the two suffix
-// scans over the set's buckets as K3b does.
+// buckets, one cluster of WIDE_CLUSTER CTAs each; a bucket is never split.
+// No add of the segmented scan crosses a segment start, so a range that
+// starts at a segment start gives each lane the value the scan over the
+// whole set gives it, and only each segment's last lane is kept: the
+// cluster computes just the lanes that feed it (at level i those whose
+// distance to their segment's end is a multiple of 2^(i+1)), s - 1 adds
+// for a segment of s partials, in place, cut evenly over the cluster's CTAs
+// with a cluster barrier between levels. Each CTA first finds the first
+// slot of every bucket of its range once, by one pass of adjacent
+// differences into shared memory, and lists its share of the slots by the
+// number of levels that write each (deepest first), so that the lanes of
+// level i are the first ones of its list and fill whole warps. The
+// cluster then writes every bucket of its range (its merged sum, or
+// infinity), and the last cluster of the set to finish (a counter per set)
+// runs the two suffix scans over the set's buckets as K3b does, each
+// level's lanes spread over its CTAs, which exchange sums through L2.
 //
 // K3c window_combine: the Horner combine of the rounds' window sums,
 // most significant first - c doublings of the running sum, then one add of
 // the next window - on one thread, in one launch. The chain is serial, and
 // any other grouping of the sums would change the Jacobian coordinates.
 //
+// K4 glv_digits: one thread per scalar leaves Montgomery form, splits k =
+// k1 - k2 lambda (mod r) with the Babai quotients as the high limbs of limb
+// products sized to the GLV constants, and writes the signed c-bit digits
+// of k1 and k2 in the precomputed table's entry order, each round's row
+// coalesced.
+//
 // Layouts: planar (18, lanes) 15-bit limb arrays as everywhere in the
 // package, infinity flags one byte per lane; partial slot k of round r is
 // lane r * nslots + k. The level buffers live in device memory (L2) and
 // are read with ld.global.cg, never through the read-only cache, since
 // the same kernel writes them.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "point.cuh"
 
+namespace cg = cooperative_groups;
+
 #define ACC_THREADS 64
 #define REDUCE_THREADS 256
+#define WIDE_CLUSTER 8  // K3b-wide: CTAs per cluster (the portable cluster size)
+#define DIGIT_THREADS 128
 
 __device__ __forceinline__ int bucket_of(int d, int nbuckets) {
     int mag = d < 0 ? -d : d;
@@ -239,6 +258,41 @@ bucket_reduce_kernel(const int* __restrict__ cd, Pts in0, Pts ping, Pts pong, Pt
 // ---------------------------------------------------------------------------
 // K3b-wide
 // ---------------------------------------------------------------------------
+#ifdef BB_WIDE_STAMPS
+// Debug build only (tools/time_torch_wide.py): per set, %globaltimer at the
+// first CTA's start and at the last end of the merge, the scatter and the
+// suffix scans, taken by thread 0 of each CTA after a barrier.
+#define WIDE_STAMP_SETS 16
+__device__ unsigned long long wide_stamps[WIDE_STAMP_SETS][4];
+
+__device__ __forceinline__ void wide_stamp(int s, int k) {
+    if (threadIdx.x != 0 || s >= WIDE_STAMP_SETS) return;
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (k == 0)
+        atomicMin(&wide_stamps[s][0], t);
+    else
+        atomicMax(&wide_stamps[s][k], t);
+}
+
+// Copies the stamps of the first `sets` sets to host (sets x 4 words) and
+// resets them.
+extern "C" int bb_wide_stamps(void* host, int sets) {
+    unsigned long long h[WIDE_STAMP_SETS][4];
+    cudaError_t e = cudaMemcpyFromSymbol(h, wide_stamps, sizeof(h));
+    if (e != cudaSuccess) return (int)e;
+    for (int s = 0; s < sets && s < WIDE_STAMP_SETS; ++s)
+        for (int k = 0; k < 4; ++k) ((unsigned long long*)host)[4 * s + k] = h[s][k];
+    for (int s = 0; s < WIDE_STAMP_SETS; ++s) {
+        h[s][0] = ~0ull;
+        h[s][1] = h[s][2] = h[s][3] = 0;
+    }
+    return (int)cudaMemcpyToSymbol(wide_stamps, h, sizeof(h));
+}
+#else
+__device__ __forceinline__ void wide_stamp(int, int) {}
+#endif
+
 // First index in [lo, hi) whose bucket is >= v (hi if none); c is sorted.
 __device__ __forceinline__ int lower_bound(const int* __restrict__ c, int lo, int hi, int v) {
     while (lo < hi) {
@@ -251,72 +305,147 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ c, int lo, in
     return lo;
 }
 
+// CTA `rank`'s share [begin, end) of n items of a level: the items are cut
+// into WIDE_CLUSTER contiguous pieces, so that every SM of the cluster takes
+// part even when a level has fewer items than the cluster has threads.
+struct Share {
+    int begin, end;
+};
+
+__device__ __forceinline__ Share cta_share(int n, int rank) {
+    const int q = (n + WIDE_CLUSTER - 1) / WIDE_CLUSTER;
+    return {min(n, rank * q), min(n, (rank + 1) * q)};
+}
+
+// The merge levels that write slot t of the segment [first, end]: level i
+// adds lane t - 2^i into lane t when end - t is a multiple of 2^(i+1) and t
+// - first >= 2^i, so t takes part in levels 0 .. depth - 1 with depth =
+// min(trailing zeros of end - t, bit length of t - first).
+__device__ __forceinline__ int merge_depth(int t, int first, int end) {
+    const int q = end - t;
+    return min(q == 0 ? 32 : __ffs(q) - 1, bit_length(t - first));
+}
+
 // cd: (sets, nslots) bucket of each partial, sorted within a set (dead
 // slots, bucket nbuckets, last). in0: the partials. mid: a buffer like in0
 // for the merge's partial sums; bk0/bk1: (18, sets * nbuckets) bucket
-// buffers; done: (sets,) zeroed counters. out: (18, sets) window sums.
-// Grid: (ceil(nbuckets / range_buckets), sets).
-__global__ void __launch_bounds__(REDUCE_THREADS, 1)
+// buffers; order: (sets, nslots) words for each CTA's list of its slots,
+// deepest first; done: (sets,) zeroed counters. out: (18, sets) window sums.
+// Grid: (WIDE_CLUSTER * ceil(nbuckets / range_buckets), sets), one cluster
+// of WIDE_CLUSTER CTAs per range; dynamic shared memory: range_buckets + 1
+// words.
+__global__ void __cluster_dims__(WIDE_CLUSTER, 1, 1) __launch_bounds__(REDUCE_THREADS, 1)
 bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0, Pts bk1, Pts out,
-                          unsigned* __restrict__ done, int sets, int nslots, int nbuckets,
-                          int range_buckets, FieldConst fc) {
+                          int* __restrict__ order, unsigned* __restrict__ done, int sets, int nslots,
+                          int nbuckets, int range_buckets, FieldConst fc) {
+    extern __shared__ int offs[];  // offs[b - b0]: first slot of bucket b; offs[b1 - b0] = hi
     __shared__ int range[2];
-    __shared__ bool last;
+    __shared__ int longest;
+    __shared__ int depths[33];  // slots of the CTA's share per merge depth, then list cursors
+    __shared__ int deeper[33];  // deeper[i]: slots of the share that level i writes
+    __shared__ unsigned last;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
     const int s = blockIdx.y;
     const int* c = cd + (long)s * nslots;
     const long ps = (long)sets * nslots, pb = (long)s * nslots;
     const long bs = (long)sets * nbuckets, bb = (long)s * nbuckets;
-    const int b0 = blockIdx.x * range_buckets, b1 = min(nbuckets, b0 + range_buckets);
+    const int ranges = gridDim.x / WIDE_CLUSTER;
+    const int b0 = (blockIdx.x / WIDE_CLUSTER) * range_buckets, b1 = min(nbuckets, b0 + range_buckets);
     if (threadIdx.x == 0) {
         range[0] = lower_bound(c, 0, nslots, b0);
         range[1] = lower_bound(c, range[0], nslots, b1);
+        longest = 0;
     }
+    if (threadIdx.x < 33) depths[threadIdx.x] = 0;
     __syncthreads();
+    wide_stamp(s, 0);
     const int lo = range[0], hi = range[1];
 
-    // (1) merge each bucket's partials: level i adds lane t - 2^i into lane
-    // t for the lanes t >= first + 2^i with end - t a multiple of 2^(i+1).
-    // Lane `first` is never written, and every other lane read at level i
-    // was written at level 0, so reads go to in0 only at level 0 and for
-    // the segment's first lane.
-    const int levels = bit_length(hi - lo - 1);
+    // segment bounds, once: each slot t in [lo, hi] starts the buckets after
+    // its left neighbour's up to its own (slot hi: up to b1), so every bucket
+    // of the range gets its first slot from one adjacent difference
+    for (int t = lo + threadIdx.x; t <= hi; t += blockDim.x) {
+        const int prev = t == lo ? b0 - 1 : c[t - 1];
+        const int cur = t == hi ? b1 : c[t];
+        for (int b = prev + 1; b <= cur; ++b) offs[b - b0] = t;
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < b1 - b0; b += blockDim.x) atomicMax(&longest, offs[b + 1] - offs[b]);
+
+    // the CTA's share of the range's slots, listed deepest first, so that
+    // the lanes level i writes are the first deeper[i] of the list
+    const Share slots = cta_share(hi - lo, rank);
+    int* list = order + pb + lo + slots.begin;
+    for (int t = lo + slots.begin + threadIdx.x; t < lo + slots.end; t += blockDim.x) {
+        const int b = c[t] - b0;
+        atomicAdd(&depths[merge_depth(t, offs[b], offs[b + 1] - 1)], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int listed = 0;
+        for (int k = 32; k >= 1; --k) {
+            const int n = depths[k];
+            depths[k] = listed;
+            listed += n;
+            deeper[k - 1] = listed;
+        }
+    }
+    __syncthreads();
+    for (int t = lo + slots.begin + threadIdx.x; t < lo + slots.end; t += blockDim.x) {
+        const int b = c[t] - b0;
+        const int k = merge_depth(t, offs[b], offs[b + 1] - 1);
+        if (k > 0) list[atomicAdd(&depths[k], 1)] = t;
+    }
+    __syncthreads();
+
+    // (1) merge each bucket's partials over the cluster: level i adds lane
+    // t - 2^i into lane t for the lanes t >= first + 2^i with end - t a
+    // multiple of 2^(i+1). Lane `first` is never written, and every other
+    // lane read at level i was written at level 0, so reads go to in0 only
+    // at level 0 and for the segment's first lane.
+    const int levels = bit_length(longest - 1);
     for (int i = 0; i < levels; ++i) {
         const int d = 1 << i;
-        for (int t = lo + threadIdx.x; t < hi; t += blockDim.x) {
-            const int b = c[t];
-            const int first = lower_bound(c, lo, t, b);
-            const int end = lower_bound(c, t, hi, b + 1) - 1;
-            if (t - first < d || ((end - t) & (2 * d - 1)) != 0) continue;
+        for (int w = threadIdx.x; w < deeper[i]; w += blockDim.x) {
+            const int t = list[w];
+            const int first = offs[c[t] - b0];
             const jpt p = load_pt_cg(i == 0 ? in0 : mid, pb + t, ps);
             const jpt q = load_pt_cg(i == 0 || t - d == first ? in0 : mid, pb + t - d, ps);
             store_pt(mid, pb + t, ps, jac_add<false>(p.x, p.y, p.z, p.inf, q.x, q.y, q.z, q.inf, fc));
         }
-        __syncthreads();
+        __threadfence();
+        cluster.sync();
     }
+    wide_stamp(s, 1);
 
     // (2) every bucket of the range: its segment's last lane, or infinity
     // with zero coordinates when it has no partial
-    for (int b = b0 + threadIdx.x; b < b1; b += blockDim.x) {
-        const int first = lower_bound(c, lo, hi, b);
+    const Share own = cta_share(b1 - b0, rank);
+    for (int b = b0 + own.begin + threadIdx.x; b < b0 + own.end; b += blockDim.x) {
+        const int first = offs[b - b0], end = offs[b - b0 + 1] - 1;
         jpt v;
-        if (first == hi || c[first] != b) {
+        if (end < first) {
             v.x = v.y = v.z = fe_zero();
             v.inf = true;
         } else {
-            const int end = lower_bound(c, first, hi, b + 1) - 1;
             v = load_pt_cg(end == first ? in0 : mid, pb + end, ps);
         }
         store_pt(bk0, bb + b, bs, v);
     }
     __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(done + s, 1u) == gridDim.x - 1;
-    __syncthreads();
-    if (!last) return;
+    cluster.sync();
+    wide_stamp(s, 2);
+    if (rank == 0 && threadIdx.x == 0) last = atomicAdd(done + s, 1u) == (unsigned)ranges - 1;
+    cluster.sync();
+    const bool is_last = *cluster.map_shared_rank(&last, 0) != 0;
+    cluster.sync();  // every CTA has read rank 0's word before any may exit
+    if (!is_last) return;
     __threadfence();
 
-    // (3)-(4) the last CTA of the set: the full first suffix scan, then the
-    // second only for the lanes that feed lane 0 (in place), as in K3b
+    // (3)-(4) the last cluster of the set to finish: the full first suffix
+    // scan, then the second only for the lanes that feed lane 0 (in place),
+    // as in K3b, each level's lanes spread over the cluster's CTAs
     const int sc_levels = max(1, bit_length(nbuckets - 1));
     for (int step = 0; step < 2 * sc_levels; ++step) {
         const bool lane0 = step >= sc_levels;
@@ -324,8 +453,8 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
         const Pts src = lane0 ? (((sc_levels - 1) & 1) ? bk0 : bk1) : ((i & 1) ? bk1 : bk0);
         const Pts dst = lane0 ? src : ((i & 1) ? bk0 : bk1);
         const int d = 1 << i;
-        const int work = lane0 ? (nbuckets + 2 * d - 1) / (2 * d) : nbuckets;
-        for (int t = threadIdx.x; t < work; t += blockDim.x) {
+        const Share lanes = cta_share(lane0 ? (nbuckets + 2 * d - 1) / (2 * d) : nbuckets, rank);
+        for (int t = lanes.begin + threadIdx.x; t < lanes.end; t += blockDim.x) {
             const int lane = lane0 ? t * 2 * d : t;
             jpt p = load_pt_cg(src, bb + lane, bs);
             if (lane + d < nbuckets) {
@@ -334,12 +463,14 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
             }
             store_pt(dst, bb + lane, bs, p);
         }
-        __syncthreads();
+        __threadfence();
+        cluster.sync();
     }
-    if (threadIdx.x == 0) {
+    if (rank == 0 && threadIdx.x == 0) {
         const Pts fin = ((sc_levels - 1) & 1) ? bk0 : bk1;
         store_pt(out, s, sets, load_pt_cg(fin, bb, bs));
     }
+    wide_stamp(s, 3);
 }
 
 // ---------------------------------------------------------------------------
@@ -372,6 +503,100 @@ window_combine_kernel(Pts win, int rounds, int c, Pts out, FieldConst fc) {
         p = jac_add<false>(p.x, p.y, p.z, p.inf, w.x, w.y, w.z, w.inf, fc);
         store_pt(out, 0, 1, p);
     }
+}
+
+// ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+// The GLV constants as 9 x 30-bit limbs, passed by value like FieldConst:
+// g2, g1 (the Babai multipliers shifted left by 14, so that the quotient by
+// 2^270 is the product's high limbs), -b1, b2 and lambda * 2^270 mod r. Only
+// the low G2_LIMBS, G1_LIMBS, B1_LIMBS and B2_LIMBS limbs of the first four
+// may be non-zero (bb_glv_digits checks this), so for k < r < 2^254 the
+// quotients c1 = floor(k g2 / 2^270) < 2^(254 + 90 - 270) and c2 <
+// 2^(254 + 150 - 270) have C1_LIMBS and C2_LIMBS limbs, and q1 = c1 (-b1),
+// q2 = c2 b2 < 2^224 need no reduction.
+#define G2_LIMBS 3
+#define G1_LIMBS 5
+#define B1_LIMBS 5
+#define B2_LIMBS 3
+#define C1_LIMBS 3
+#define C2_LIMBS 5
+struct GlvConst {
+    uint32_t g2[FE_LIMBS], g1[FE_LIMBS], minus_b1[FE_LIMBS], b2[FE_LIMBS], lambda[FE_LIMBS];
+};
+
+// The low NOUT 30-bit limbs of a * b for an NA-limb a and an NB-limb b,
+// carry-propagated. The limb counts are compile-time, so no product of a
+// limb known to be zero is issued: a column sums at most min(NA, NB) <= 9
+// products of 30-bit limbs (< 2^63.2) in one 64-bit word, and the carry
+// into it is < 2^34 (tests/test_torch_msm_digits.py models this).
+template <int NA, int NB, int NOUT>
+__device__ __forceinline__ void mul_limbs(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < NOUT; ++k) {
+        uint64_t col = carry;
+#pragma unroll
+        for (int i = (k < NB ? 0 : k - NB + 1); i <= (k < NA ? k : NA - 1); ++i)
+            col += (uint64_t)a[i] * b[k - i];
+        out[k] = (uint32_t)col & FE_MASK;
+        carry = col >> 30;
+    }
+}
+
+// A half (< 2^128, 30-bit limbs; bits above 128 dropped) as ceil(128 / c)
+// signed c-bit windows and the final carry, LSB window first: digit r goes
+// to out[r * row], and the window borrows 2^c from the next when it reaches
+// 2^(c-1), so digits lie in [-2^(c-1), 2^(c-1)].
+__device__ __forceinline__ void store_signed_digits(const fe& h, int c, int* out, long row) {
+    uint64_t lo = (uint64_t)h.v[0] | ((uint64_t)h.v[1] << 30) | ((uint64_t)h.v[2] << 60);
+    uint64_t hi = ((uint64_t)h.v[2] >> 4) | ((uint64_t)h.v[3] << 26) | ((uint64_t)(h.v[4] & 0xFFu) << 56);
+    const int nwin = (128 + c - 1) / c;
+    const uint32_t wmask = (1u << c) - 1, half = 1u << (c - 1);
+    uint32_t carry = 0;
+    for (int r = 0; r < nwin; ++r) {
+        const uint32_t v = ((uint32_t)lo & wmask) + carry;
+        carry = v >= half;
+        out[r * row] = (int)v - (int)(carry << c);
+        lo = (lo >> c) | (hi << (64 - c));
+        hi >>= c;
+    }
+    out[nwin * row] = (int)carry;
+}
+
+// One thread per scalar j = b * n + i of set b: leave Montgomery form, split
+// k = k1 - k2 lambda (mod r) as the JAX package's split_scalars does, and
+// store the signed digits of k1 at out[b * m + r * 2n + i] and of k2 at
+// out[b * m + r * 2n + n + i] for each round r; the words of each set from
+// rounds * 2n up to m are zeroed by the same threads, grid-strided.
+__global__ void __launch_bounds__(DIGIT_THREADS)
+glv_digits_kernel(const uint32_t* __restrict__ scalars, int* __restrict__ out, int sets, int n, int c,
+                  long m, FieldConst fc, GlvConst gc) {
+    const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long total = (long)sets * n;
+    const int rounds = (128 + c - 1) / c + 1;
+    const long used = (long)rounds * 2 * n, pad = m - used;
+    for (long q = j; q < sets * pad; q += (long)gridDim.x * blockDim.x) out[(q / pad) * m + used + q % pad] = 0;
+    if (j >= total) return;
+    const long b = j / n, i = j % n;
+
+    fe one = fe_zero();
+    one.v[0] = 1;
+    const fe k = fe_mul(fe_load(scalars + j, total), one, fc);  // the plain value
+    uint32_t p1[FE_LIMBS + C1_LIMBS], p2[FE_LIMBS + C2_LIMBS];
+    mul_limbs<FE_LIMBS, G2_LIMBS, FE_LIMBS + C1_LIMBS>(k.v, gc.g2, p1);  // c1: the limbs from 9 on
+    mul_limbs<FE_LIMBS, G1_LIMBS, FE_LIMBS + C2_LIMBS>(k.v, gc.g1, p2);  // c2
+    fe q1 = fe_zero(), q2 = fe_zero(), lam;
+    mul_limbs<C1_LIMBS, B1_LIMBS, C1_LIMBS + B1_LIMBS>(p1 + FE_LIMBS, gc.minus_b1, q1.v);  // q1 = c1 (-b1)
+    mul_limbs<C2_LIMBS, B2_LIMBS, C2_LIMBS + B2_LIMBS>(p2 + FE_LIMBS, gc.b2, q2.v);
+#pragma unroll
+    for (int t = 0; t < FE_LIMBS; ++t) lam.v[t] = gc.lambda[t];
+    const fe t1 = fe_sub(q2, q1, fc);                       // k2 = t1 mod 2^128
+    const fe t2 = fe_add(fe_mul(t1, lam, fc), k, fc);       // k1 = t1 lambda + k mod 2^128
+    int* o = out + b * m + i;
+    store_signed_digits(t2, c, o, 2L * n);
+    store_signed_digits(t1, c, o + n, 2L * n);
 }
 
 // ---------------------------------------------------------------------------
@@ -420,9 +645,10 @@ extern "C" int bb_bucket_reduce(const void* cd, const void* px, const void* py, 
     return (int)cudaGetLastError();
 }
 
-// scratch32: 3 x 18 x sets x nslots words (the merge's buffer), then 6 x
-// 18 x sets x nbuckets (two bucket buffers); scratch8: sets x (nslots + 2 x
-// nbuckets) flag bytes; done: sets zeroed words.
+// scratch32: 3 x 18 x sets x nslots words (the merge's buffer), 6 x 18 x
+// sets x nbuckets (two bucket buffers), then sets x nslots (the slot
+// lists); scratch8: sets x (nslots + 2 x nbuckets) flag bytes; done: sets
+// zeroed words.
 extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void* py, const void* pz,
                                      const void* pinf, void* scratch32, void* scratch8, void* done,
                                      void* ox, void* oy, void* oz, void* oinf, int sets, int nslots,
@@ -430,6 +656,7 @@ extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void*
                                      void* stream) {
     if (sets <= 0) return 0;
     if (nslots <= 0 || nbuckets <= 0 || range_buckets <= 0) return (int)cudaErrorInvalidValue;
+    if (range_buckets > nbuckets) range_buckets = nbuckets;
     const long ps = 18L * sets * nslots, bs = 18L * sets * nbuckets;
     uint32_t* w = (uint32_t*)scratch32;
     uint8_t* f = (uint8_t*)scratch8;
@@ -440,10 +667,56 @@ extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void*
     Pts bk0 = {wb, wb + bs, wb + 2 * bs, fb};
     Pts bk1 = {wb + 3 * bs, wb + 4 * bs, wb + 5 * bs, fb + (long)sets * nbuckets};
     Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
-    const dim3 grid((unsigned)((nbuckets + range_buckets - 1) / range_buckets), (unsigned)sets);
-    bucket_reduce_wide_kernel<<<grid, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)cd, in0, mid, bk0, bk1, out, (unsigned*)done, sets, nslots, nbuckets,
+    int* order = (int*)(wb + 6 * bs);
+    const size_t smem = sizeof(int) * ((size_t)range_buckets + 1);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(bucket_reduce_wide_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int ranges = (nbuckets + range_buckets - 1) / range_buckets;
+    const dim3 grid((unsigned)(WIDE_CLUSTER * ranges), (unsigned)sets);
+    bucket_reduce_wide_kernel<<<grid, REDUCE_THREADS, smem, (cudaStream_t)stream>>>(
+        (const int*)cd, in0, mid, bk0, bk1, out, order, (unsigned*)done, sets, nslots, nbuckets,
         range_buckets, field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+// The most clusters of bucket_reduce_wide_kernel resident on the device at
+// once (cudaOccupancyMaxActiveClusters) with range_buckets buckets per
+// cluster, into *out.
+extern "C" int bb_wide_max_clusters(int range_buckets, void* out) {
+    const size_t smem = sizeof(int) * ((size_t)range_buckets + 1);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(bucket_reduce_wide_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(WIDE_CLUSTER, 1, 1);
+    cfg.blockDim = dim3(REDUCE_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    return (int)cudaOccupancyMaxActiveClusters((int*)out, (const void*)bucket_reduce_wide_kernel, &cfg);
+}
+
+// scalars: (18, sets * n) internal-Montgomery Fr limbs; out: (sets, m) int32
+// with m >= rounds * 2n; fr_consts: Fr's 19 FieldConst words; glv_consts:
+// the 45 GlvConst words.
+extern "C" int bb_glv_digits(const void* scalars, void* out, int sets, int n, int c, long m,
+                             const uint32_t* fr_consts, const uint32_t* glv_consts, void* stream) {
+    if (sets <= 0 || n <= 0) return 0;
+    if (c < 1 || c > 30 || m < ((128L + c - 1) / c + 1) * 2 * n) return (int)cudaErrorInvalidValue;
+    GlvConst gc;
+    uint32_t* w = (uint32_t*)&gc;
+    for (int t = 0; t < 5 * FE_LIMBS; ++t) w[t] = glv_consts[t];
+    const int widths[4] = {G2_LIMBS, G1_LIMBS, B1_LIMBS, B2_LIMBS};
+    for (int v = 0; v < 4; ++v)  // the kernel skips the limbs above each constant's width
+        for (int t = widths[v]; t < FE_LIMBS; ++t)
+            if (w[v * FE_LIMBS + t] != 0) return (int)cudaErrorInvalidValue;
+    const long total = (long)sets * n;
+    const unsigned grid = (unsigned)((total + DIGIT_THREADS - 1) / DIGIT_THREADS);
+    glv_digits_kernel<<<grid, DIGIT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)scalars, (int*)out, sets, n, c, m, field_const_from_host(fr_consts), gc);
     return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import BUILD_DIR
-from ..fields.params import FieldParams, R_INTERNAL
+from ..fields.params import FR_PARAMS, GLV_B2, GLV_G1, GLV_G2, GLV_MINUS_B1, R_INTERNAL, FieldParams
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("field_kernels", "butterfly", "point_kernels", "point_chains", "msm_kernels")
@@ -131,9 +131,19 @@ _SIGNATURES = {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
         "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 4 + [_VP, _VP],
+        "bb_wide_max_clusters": [_I, _VP],
         "bb_window_combine": [_VP] * 8 + [_I, _I, _VP, _VP],
+        "bb_glv_digits": [_VP, _VP, _I, _I, _I, _L, _VP, _VP, _VP],
     },
 }
+
+
+def _bind(lib, signatures: dict):
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
 
 
 def get_lib(name: str):
@@ -142,32 +152,61 @@ def get_lib(name: str):
     lib = _libs.get(name)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(_so_path(name))
-        for fn, argtypes in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = _bind(ctypes.CDLL(_so_path(name)), _SIGNATURES[name])
     return lib
+
+
+def load_variant(name: str, defines: tuple, extra: dict):
+    """One source built anew with extra ``-D`` defines (a debug build, such as
+    K3b-wide's phase stamps) into a directory of its own and loaded, with the
+    library's signatures and the ``extra`` ones. The package's own library is
+    untouched."""
+    out_dir = os.path.join(BUILD_DIR, "variant_" + "_".join(defines))
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"lib{name}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", so, os.path.join(CSRC_DIR, f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu with {defines}:\n{proc.stdout}{proc.stderr}")
+    return _bind(ctypes.CDLL(so), {**_SIGNATURES[name], **extra})
 
 
 _const_cache: dict = {}
 
 
+def _limbs30(value: int) -> list:
+    return [(value >> (30 * k)) & ((1 << 30) - 1) for k in range(9)]
+
+
+def _host_words(key: str, words):
+    """The host address of the uint32 array of ``words()``, made once per
+    key and kept alive by the cache."""
+    arr = _const_cache.get(key)
+    if arr is None:
+        arr = np.ascontiguousarray(np.array(words(), dtype=np.uint32))
+        _const_cache[key] = arr
+    return arr.ctypes.data
+
+
 def field_consts(params: FieldParams):
     """The 19 host words a kernel launch takes: modulus, R' mod p and
-    -p^-1 mod 2^30 as 30-bit limbs, derived from the field parameters.
-    Returns the host address; the cache keeps the array alive."""
-    arr = _const_cache.get(params.name)
-    if arr is None:
-        mask = (1 << 30) - 1
-        p, one = params.modulus, R_INTERNAL % params.modulus
-        words = [(p >> (30 * k)) & mask for k in range(9)]
-        words += [(one >> (30 * k)) & mask for k in range(9)]
-        words.append((-pow(p, -1, 1 << 30)) % (1 << 30))
-        arr = np.ascontiguousarray(np.array(words, dtype=np.uint32))
-        _const_cache[params.name] = arr
-    return arr.ctypes.data
+    -p^-1 mod 2^30 as 30-bit limbs, derived from the field parameters."""
+    p = params.modulus
+    return _host_words(params.name,
+                       lambda: _limbs30(p) + _limbs30(R_INTERNAL % p) + [(-pow(p, -1, 1 << 30)) % (1 << 30)])
+
+
+def glv_consts():
+    """The 45 host words of K4's GlvConst: GLV_G2 << 14, GLV_G1 << 14,
+    GLV_MINUS_B1, GLV_B2 and the Montgomery form of Fr's lambda (cube root),
+    as 30-bit limbs (the launch refuses the first four if they are wider
+    than the kernel's compile-time widths)."""
+
+    def words():
+        lam = FR_PARAMS.cube_root * R_INTERNAL % FR_PARAMS.modulus
+        return [w for v in (GLV_G2 << 14, GLV_G1 << 14, GLV_MINUS_B1, GLV_B2, lam) for w in _limbs30(v)]
+
+    return _host_words("glv", words)
 
 
 def check(err: int, what: str) -> None:

@@ -41,13 +41,38 @@ package runs them once over the precomputed-table MSM's one bucket set
 (``msm/pippenger.py:517`` ``_accumulate_window``): 14,848 partials at 2^16
 points, ten times a round's, which on one CTA would take ten times as long.
 What the design does about it: the set's partials are cut at bucket
-boundaries into ranges of ``range_buckets`` buckets, one CTA each (a
-bucket is never split); since no add of the segmented scan crosses a
-segment start, a range that starts at one gives every lane the value the
-scan over the whole set gives it, and a CTA computes only the lanes that
-feed each bucket's last lane (s - 1 adds for s partials, in place). The
-last CTA of a set to finish runs K3b's two suffix scans over its buckets.
-B commitments are B sets of one launch.
+boundaries into ranges of ``range_buckets`` buckets, one cluster of eight
+CTAs each (a bucket is never split); since no add of the segmented scan
+crosses a segment start, a range that starts at one gives every lane the
+value the scan over the whole set gives it. Each CTA finds its buckets'
+first slots once, by one pass of adjacent differences into shared memory,
+and lists its eighth of the range's slots deepest first by the number of
+merge levels that write each; the cluster's 2,048 threads then compute,
+level by level with a cluster barrier between levels, only the lanes that
+feed each bucket's last lane (s - 1 adds for s partials, in place), level
+i's lanes being the head of each CTA's list, so warps run full and one long
+bucket spreads over the whole cluster. The last cluster of a set to finish
+runs K3b's two suffix scans over its buckets, each level's lanes cut evenly
+over its CTAs. By default the ranges are sized so that all sets' clusters
+are resident at once, as many as CUDA's occupancy query says the card
+holds (``wide_range_buckets``). B commitments are B sets of one launch.
+
+K4 ``glv_digits`` replaces the GLV split and signed digits that the JAX
+package runs inside its jitted Pippenger (``msm/wnaf.py:73-97``
+``split_scalars``, whose field steps - ``to_plain``, ``sub``, ``mont_mul``,
+``add`` - go through the Pallas field kernel ``kernels/field_kernels.py:64``,
+and ``:136`` ``signed_digits``); in the port the eager chain took ~965
+launches per MSM call. It is bound by bytes: 72 in and 4 per digit out per
+scalar (2 x 14 digits at c = 10) against 888 32-bit multiply-adds (102 wide
+multiplies in four limb products, two Montgomery products). What the
+design does about it: one thread per scalar keeps the whole split in
+registers - the Babai quotients are the limbs from the ninth on of the
+products with the multipliers shifted left by 14 (270 = 9 x 30), each limb
+product compiled at its operands' widths (3 or 5 limbs for the constants
+and the quotients, so no multiply of a zero limb is issued), the field
+steps ``csrc/field.cuh``'s - and stores each round's digits of k1 and k2
+coalesced in the table's entry order, so a commit call's (B, m) digits are
+one launch.
 
 K3c is bound by neither bytes nor instruction rate: its 140 doublings and 14 adds
 (c = 10, 14 rounds) are one dependent chain of ~1,200 Montgomery products,
@@ -66,11 +91,12 @@ kernels (or raises); a CPU batch always takes the plain versions below.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ..fields.params import FQ_PARAMS, NUM_LIMBS
+from ..fields.params import FQ_PARAMS, FR_PARAMS, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
@@ -79,10 +105,36 @@ from .point_kernels import ROW_WORDS, plain_add, plain_dbl, plain_mixed_add, poi
 L = NUM_LIMBS
 
 # Kernel launches since the counters were last reset (reset_counts).
-launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "bucket_reduce_wide": 0, "window_combine": 0}
+launch_counts = {"bucket_accumulate": 0, "bucket_reduce": 0, "bucket_reduce_wide": 0, "window_combine": 0,
+                 "glv_digits": 0}
 
-# K3b-wide: buckets per CTA on the card (at 2^16 points ~29 partials each)
-WIDE_RANGE_BUCKETS = 8
+# K3b-wide: CTAs per cluster (csrc/msm_kernels.cu WIDE_CLUSTER)
+WIDE_CLUSTER = 8
+_max_clusters: dict = {}
+
+
+def wide_max_clusters(nbuckets: int, device) -> int:
+    """The most K3b-wide clusters the card holds at once, from CUDA's
+    occupancy query at the shared memory of a range of ``nbuckets`` buckets
+    (the widest): an H100's GPCs need not hold a multiple of WIDE_CLUSTER
+    SMs, so this can be fewer than SMs / WIDE_CLUSTER."""
+    key = (device, nbuckets)
+    n = _max_clusters.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = build.get_lib("msm_kernels").bb_wide_max_clusters(nbuckets, ctypes.addressof(out))
+        build.check(err, "the bucket_reduce_wide occupancy query")
+        n = _max_clusters[key] = out.value
+    return n
+
+
+def wide_range_buckets(nbuckets: int, sets: int, device) -> int:
+    """K3b-wide's default buckets per cluster: the fewest that give every set
+    the same number of ranges and all sets' clusters at most
+    ``wide_max_clusters``, so that they run in one wave."""
+    per_set = max(1, wide_max_clusters(nbuckets, device) // sets)
+    return -(-nbuckets // per_set)
 
 
 def reset_counts() -> None:
@@ -240,7 +292,7 @@ def _suffix_scan(p: JacobianPoints) -> JacobianPoints:
 
 def _ks_in_ranges(p: JacobianPoints, cd: torch.Tensor, nbuckets: int, range_buckets: int) -> JacobianPoints:
     """The segmented scan run on each range of ``range_buckets`` buckets of
-    each set alone, as K3b-wide's CTAs run it. The ranges are the rows of
+    each set alone, as K3b-wide's clusters run it. The ranges are the rows of
     one padded (ranges, width) batch, pad lanes trailing each row as one
     segment at infinity; dead slots (bucket ``nbuckets``, never scattered)
     keep their input."""
@@ -321,9 +373,30 @@ def plain_bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
 def plain_bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
     """K3b-wide's function, each bucket set's window sum, with the set's
     partials merged in ranges of ``range_buckets`` buckets as the kernel's
-    CTAs merge them (None: uncut). Every range starts at a segment start,
+    clusters merge them (None: uncut). Every range starts at a segment start,
     so the result does not depend on the cut."""
     return _window_sums(plain_bucket_sums(partials, nbuckets, range_buckets))
+
+
+def digit_rounds(c: int) -> int:
+    """Rounds of signed c-bit digits of a 128-bit GLV half: ceil(128 / c)
+    windows and the final carry."""
+    return -(-128 // c) + 1
+
+
+def plain_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+    """K4's function as the eager chain: GLV split (``msm/wnaf.py``
+    ``split_scalars``) and signed digits (``signed_digits``) of ``sets``
+    scalar vectors of n, given as one (18, sets * n) internal-Montgomery Fr
+    tensor -> (sets, m) int32: round r's n digits of k1, then its n of k2,
+    rounds one after another, zeros up to m."""
+    from ..msm.wnaf import signed_digits, split_scalars  # msm imports this module
+
+    n = scalars.shape[1] // sets
+    k1, k2 = split_scalars(scalars)
+    d1, d2 = (signed_digits(k, c).reshape(-1, sets, n) for k in (k1, k2))
+    digits = torch.cat([d1, d2], dim=2).permute(1, 0, 2).reshape(sets, -1)
+    return torch.nn.functional.pad(digits, (0, m - digits.shape[1]))
 
 
 def plain_window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
@@ -414,7 +487,9 @@ def _launch_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
-def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int) -> JacobianPoints:
+def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int, lib=None) -> JacobianPoints:
+    """K3b-wide's launch; ``lib`` is the package's msm_kernels library unless a
+    debug build of it is given (tools/time_torch_wide.py)."""
     cd = partials.bucket
     dev = cd.device
     if not cd.is_cuda:
@@ -424,12 +499,12 @@ def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int) -
     p = partials.points
     x, y, z = (_check(t, (L, sets * k), torch.int32, dev) for t in (p.x, p.y, p.z))
     inf = _check(p.inf, (sets * k,), torch.bool, dev).view(torch.uint8)
-    scratch32 = torch.empty(3 * L * sets * (k + 2 * nbuckets), dtype=torch.int32, device=dev)
+    scratch32 = torch.empty(3 * L * sets * (k + 2 * nbuckets) + sets * k, dtype=torch.int32, device=dev)
     scratch8 = torch.empty(sets * (k + 2 * nbuckets), dtype=torch.uint8, device=dev)
     done = torch.zeros(sets, dtype=torch.int32, device=dev)
     ox, oy, oz = (torch.empty((L, sets), dtype=torch.int32, device=dev) for _ in range(3))
     oinf = torch.empty(sets, dtype=torch.uint8, device=dev)
-    lib = build.get_lib("msm_kernels")
+    lib = lib or build.get_lib("msm_kernels")
     with torch.cuda.device(dev):
         err = lib.bb_bucket_reduce_wide(
             cd.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
@@ -463,9 +538,39 @@ def _launch_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
+def _launch_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+    dev = scalars.device
+    if not scalars.is_cuda:
+        raise ValueError("glv_digits kernel takes CUDA tensors")
+    n = scalars.shape[1] // sets
+    scalars = _check(scalars, (L, sets * n), torch.int32, dev)
+    out = torch.empty((sets, m), dtype=torch.int32, device=dev)
+    lib = build.get_lib("msm_kernels")
+    with torch.cuda.device(dev):
+        err = lib.bb_glv_digits(
+            scalars.data_ptr(), out.data_ptr(), sets, n, c, m,
+            build.field_consts(FR_PARAMS), build.glv_consts(), build.current_stream(),
+        )
+    build.check(err, "glv_digits")
+    launch_counts["glv_digits"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
+def glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+    """K4: ``sets`` scalar vectors of n, one (18, sets * n) internal-Montgomery
+    Fr tensor -> (sets, m) int32 signed c-bit GLV digits: per set, round r's
+    n digits of k1, then its n of k2, rounds one after another (m >=
+    ``digit_rounds(c)`` * 2n), zeros beyond."""
+    if scalars.shape[1] % sets or not 1 <= c <= 30 or m < digit_rounds(c) * 2 * (scalars.shape[1] // sets):
+        raise ValueError(f"glv_digits: {scalars.shape[1]} scalars in {sets} sets, c = {c}, m = {m}")
+    if scalars.is_cuda:
+        return _launch_glv_digits(scalars, sets, c, m)
+    return plain_glv_digits(scalars, sets, c, m)
+
+
 def bucket_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
     """K3a: every round's block walks -> compacted bucket partials."""
     if px.is_cuda:
@@ -489,10 +594,12 @@ def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
 
 def bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
     """K3b-wide: compacted partials of S bucket sets -> each set's window
-    sum, (18, S); ``range_buckets`` buckets per CTA (default
-    ``WIDE_RANGE_BUCKETS``)."""
+    sum, (18, S); ``range_buckets`` buckets per cluster of CTAs (default
+    ``wide_range_buckets``)."""
     if partials.bucket.is_cuda:
-        return _launch_reduce_wide(partials, nbuckets, range_buckets or WIDE_RANGE_BUCKETS)
+        dev = partials.bucket.device
+        rb = range_buckets or wide_range_buckets(nbuckets, partials.bucket.shape[0], dev)
+        return _launch_reduce_wide(partials, nbuckets, rb)
     return plain_bucket_reduce_wide(partials, nbuckets, range_buckets)
 
 

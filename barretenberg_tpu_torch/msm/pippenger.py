@@ -51,7 +51,7 @@ from ..fields import fq as _fq, fr as _fr
 from ..groups import AffinePoints, JacobianPoints
 from ..groups.g1 import g1 as _g1
 from ..kernels import msm_kernels, point_kernels
-from .wnaf import HALF_BITS, signed_digits, split_scalars, window
+from .wnaf import window
 
 SCALAR_BITS = 254
 
@@ -80,8 +80,9 @@ def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block:
     entries' affine coordinates px, py (18, M) and pinf (M,), with M = 2N
     padded to a multiple of `block` by dead entries."""
     fq = _fq(scalars_mont.device)
-    k1, k2 = split_scalars(scalars_mont)
-    digits = torch.cat([signed_digits(k1, c), signed_digits(k2, c)], dim=1)
+    n = scalars_mont.shape[1]
+    rounds = msm_kernels.digit_rounds(c)
+    digits = msm_kernels.glv_digits(scalars_mont, 1, c, rounds * 2 * n).reshape(rounds, 2 * n)
     beta_x = fq.mul_by_constant(points.x, fq.params.cube_root)
     px = torch.cat([points.x, beta_x], dim=1)
     py = torch.cat([points.y, fq.neg(points.y)], dim=1)
@@ -162,7 +163,7 @@ def generate_pippenger_point_table(points: AffinePoints, c: int | None = None) -
     n = points.x.shape[1]
     if c is None:
         c = optimal_window(n)
-    rounds = -(-HALF_BITS // c) + 1
+    rounds = msm_kernels.digit_rounds(c)
     dev = points.x.device
     aff = _g1(dev).batch_normalize(point_kernels.table_rows(points, rounds, c))
     x = torch.cat([points.x, aff.x], dim=1).reshape(18, rounds, n)
@@ -182,11 +183,8 @@ def precomputed_digits(scalars_list, c: int, m: int) -> torch.Tensor:
     entries: round r's N digits of the first GLV half, then its N of the
     second, rounds one after another (the JAX package's [d1 | d2] per
     round), zero beyond."""
-    b, n = len(scalars_list), scalars_list[0].shape[1]
-    k1, k2 = split_scalars(torch.cat(list(scalars_list), dim=1))
-    d1, d2 = (signed_digits(k, c).reshape(-1, b, n) for k in (k1, k2))
-    digits = torch.cat([d1, d2], dim=2).permute(1, 0, 2).reshape(b, -1)
-    return F.pad(digits, (0, m - digits.shape[1]))
+    scalars = scalars_list[0] if len(scalars_list) == 1 else torch.cat(list(scalars_list), dim=1)
+    return msm_kernels.glv_digits(scalars, len(scalars_list), c, m)
 
 
 def pippenger_precomputed_batch(scalars_list, table: PippengerPointTable, block: int = 128) -> JacobianPoints:

@@ -15,6 +15,11 @@ in between go through the Field's kernel ops.
 signed_digits: c-bit windows with borrow recoding, digits in
 [-2^(c-1), 2^(c-1)], so Pippenger needs only 2^(c-1) buckets and
 ceil(128/c)+1 rounds instead of ceil(254/c) unsigned ones.
+
+This eager chain is K4 ``glv_digits``' plain version
+(``kernels/msm_kernels.py``): on the card the MSMs take their digits from
+K4, one launch per call, and the chain runs only where it is compared with
+K4; on the CPU it computes the digits.
 """
 
 from __future__ import annotations
@@ -36,10 +41,21 @@ from ..fields.params import (
 HALF_BITS = 128
 HALF_LIMBS = -(-HALF_BITS // LIMB_BITS)  # 9 limbs cover 135 bits
 
+# Calls of the eager split's limb product on a CUDA tensor since the counter
+# was last reset (reset_counts): on the card, K4 glv_digits computes the
+# commitments' digits, so the prove path makes none.
+cuda_counts = {"mul_full_const": 0}
+
+
+def reset_counts() -> None:
+    cuda_counts["mul_full_const"] = 0
+
 
 def _mul_full_const(a: torch.Tensor, value: int) -> torch.Tensor:
     """Exact 36-limb product of (18, N) plain limbs with a host constant
     (< 2^270), carry-propagated: (36, N) int64 canonical limbs."""
+    if a.is_cuda:
+        cuda_counts["mul_full_const"] += 1
     n = a.shape[1]
     a64 = a.to(torch.int64)
     cols = torch.zeros((2 * NUM_LIMBS, n), dtype=torch.int64, device=a.device)

@@ -12,9 +12,11 @@ lanes, K3e fixed_base at 16 and 2^16 lanes) also on edge cases against the
 host oracle, the field power also against Python's pow, the precomputed
 table's kernels (K3f table_rows, K3a over the table's rows, K3b-wide
 bucket_reduce_wide with its default and forced small bucket ranges) at the
-table shapes of both proves, K3b-wide also on one-bucket and sparse sets
-against the host oracle, and the main MSM through pippenger() and
-pippenger_precomputed() -
+table shapes of both proves and at c = 13, K3b-wide also on one-bucket sets
+and at the small shape on a sparse set against the host oracle, the main
+MSM through pippenger() and pippenger_precomputed(), and K4 glv_digits (the
+GLV split and signed digits) on edge scalars, also against the host oracle,
+and on 3 x 2^16 scalars at c = 8, 10 and 13 -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
@@ -25,7 +27,7 @@ against the host oracle, and then drives the main path at n = 2^16 gates:
 SRS generation, verifier-key preprocessing, `Prover.construct_proof`, host
 `verify_proof`. From 2^10 gates every commitment goes through the SRS's
 precomputed Pippenger table (built by one K3f launch at the first
-commitment), one K3a and one K3b-wide launch per commitment call. Launches
+commitment), one K4, one K3a and one K3b-wide launch per commitment call. Launches
 are counted in four windows - the n = 16 golden proof, the n = 2^11 SRS
 generation + proof ("small"), SRS generation at 2^16 (one K3e launch), and
 the 2^16 preprocess + prove + verify - and the run fails if any kernel of
@@ -34,9 +36,10 @@ mixed_add, which K3d and K3e replace, K2's stage kernel, which K2b
 replaces, and the per-round K3b and Horner combine K3c, which the table
 replaces on the prover's path, are exempt), if any window runs a lane-wise
 dbl or mixed_add, a K3d launch other than one per naive MSM, a K3e launch
-other than one per SRS generation, K3a / K3b-wide other than once per
-commitment call through the table, any per-round K3b, Horner combine or
-(without naive MSMs) lane-wise add, or if the 2^16 windows run the
+other than one per SRS generation, K4 / K3a / K3b-wide other than once per
+commitment call through the table, any per-round K3b, Horner combine,
+limb product of the eager GLV split on a CUDA tensor or (without naive
+MSMs) lane-wise add, or if the 2^16 windows run the
 single-lane chains that K1 pow replaces or the K2 stage launches. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
@@ -60,6 +63,7 @@ import torch
 
 from barretenberg_tpu_torch import convert
 from barretenberg_tpu_torch.fields import fq as get_fq, fr as get_fr
+from barretenberg_tpu_torch.fields.glv import split_into_endomorphism_scalars
 from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
 from barretenberg_tpu_torch.fields.params import FQ_PARAMS, FR_MODULUS, FR_PARAMS, R_INTERNAL
 from barretenberg_tpu_torch.groups import AffinePoints, JacobianPoints
@@ -80,8 +84,8 @@ from barretenberg_tpu_torch.msm import (
     pippenger_precomputed,
 )
 from barretenberg_tpu_torch.msm.naive import scalar_bits
+from barretenberg_tpu_torch.msm import wnaf
 from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
-from barretenberg_tpu_torch.msm.wnaf import HALF_BITS
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.plonk.prover import Prover
 from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
@@ -122,7 +126,13 @@ REPLACES = {
     "fixed_base": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) and the jnp.take gathers in the fori_loop of barretenberg_tpu/groups/g1.py:198-210",
     "table_rows": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl) in the fori_loop of barretenberg_tpu/msm/pippenger.py:457-458",
     "bucket_reduce_wide": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82-104 and :107, over the one bucket set of :517",
+    "glv_digits": "barretenberg_tpu/kernels/field_kernels.py:64 (to_plain, sub, mont_mul, add) with the limb products and windows of barretenberg_tpu/msm/wnaf.py:73-97, :136",
 }
+# K4's 32-bit multiply-adds per scalar: its four limb products at the
+# widths it is compiled with (9 x 3, 9 x 5, 3 x 5 and 5 x 3 wide multiplies
+# of two multiply-adds each: k by g2 and g1, the quotients by -b1 and b2)
+# and two Montgomery products
+GLV_IMADS_PER_SCALAR = (9 * 3 + 9 * 5 + 3 * 5 + 5 * 3) * 2 + 2 * IMAD_PER_FIELD_MUL
 
 
 def emit(obj) -> None:
@@ -862,21 +872,23 @@ def host_entry_sum(ent: list, digits: list):
     return acc
 
 
-def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) -> None:
+def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, records: list) -> None:
     """The precomputed-table MSM's kernels at the table shapes of the small
-    and the main prove (2^log2n_small and 2^log2n points): K3f table_rows
-    against its plain version; K3a (through the table's rows) and K3b-wide
-    over the prove's widest batch, three bucket sets, against their plain
-    versions, K3b-wide also with one and three buckets per CTA; at the small
-    shape one-bucket and sparse sets also against the host oracle; the main
-    MSM through pippenger() and pippenger_precomputed() on the same
-    scalars. All exact."""
+    and the main prove (2^log2n_small and 2^log2n points), and at 2^log2n
+    points with each window of ``wide_c``: K3f table_rows against its plain
+    version; K3a (through the table's rows) and K3b-wide over the prove's
+    widest batch, three bucket sets, against their plain versions, K3b-wide
+    also with one and three buckets per cluster; at the small shape
+    one-bucket and sparse sets also against the host oracle, at the others
+    a one-bucket set of every entry against the plain version; the main MSM
+    through pippenger() and pippenger_precomputed() on the same scalars. All
+    exact."""
     fr = get_fr(device)
     runs = {}
-    for k in (log2n_small, log2n):
+    for k, c in ((log2n_small, None), (log2n, None), *((log2n, w) for w in wide_c)):
         n = 1 << k
-        c = optimal_window(n)
-        rounds, nb = -(-HALF_BITS // c) + 1, 1 << (c - 1)
+        c = c or optimal_window(n)
+        rounds, nb = msm_kernels.digit_rounds(c), 1 << (c - 1)
         pts = get_g1(device).batch_normalize(fixed_base_mul(rand_values(n, FR_MODULUS, rng), device))
         pts.inf[2] = True  # a point at infinity
         got = point_kernels.table_rows(pts, rounds, c)
@@ -884,7 +896,7 @@ def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) 
         tr_err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
         if tr_err:
             fail("kernels", f"table_rows disagrees with its plain version at {n} points")
-        table = generate_pippenger_point_table(pts)
+        table = generate_pippenger_point_table(pts, c)
         rows = table.entries(MSM_BLOCK)
         m = rows.shape[0]
         scalars = [chain_scalars(n, rng) for _ in range(3)]
@@ -901,14 +913,27 @@ def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) 
             rw_err = max(rw_err, max_abs_err(got_w[:3], want_w[:3]), int(got_w.inf.ne(want_w.inf).any()))
         if rw_err:
             fail("kernels", f"bucket_reduce_wide disagrees with its plain version at {n} points")
-        if k == log2n and jacobian_to_host(pippenger_precomputed(enc[0], table)) != jacobian_to_host(pippenger(enc[0], pts)):
+        if k == log2n and c == optimal_window(n) and (
+                jacobian_to_host(pippenger_precomputed(enc[0], table)) != jacobian_to_host(pippenger(enc[0], pts))):
             fail("kernels", f"pippenger_precomputed and pippenger disagree at {n} points")
-        runs[k] = dict(pts=pts, rounds=rounds, c=c, nb=nb, rows=rows, entries=entries, partials=partials,
-                       tr_err=tr_err, tr_plain_ms=tr_plain_ms, rw_err=rw_err, rw_plain_ms=rw_plain_ms)
+        if k == log2n:  # one bucket holds every partial: one cluster merges them
+            heavy = msm_kernels.bucket_accumulate_rows(
+                msm_kernels.sort_rounds(one_bucket_digits(m, m).to(device), nb), rows, nb, MSM_BLOCK)
+            want_h = msm_kernels.plain_bucket_reduce_wide(heavy, nb)
+            for rb in (None, 1):
+                got_h = msm_kernels.bucket_reduce_wide(heavy, nb, rb)
+                rw_err = max(rw_err, max_abs_err(got_h[:3], want_h[:3]), int(got_h.inf.ne(want_h.inf).any()))
+            if rw_err:
+                fail("kernels", f"bucket_reduce_wide disagrees with its plain version on a one-bucket set (c = {c})")
+        runs[(k, c)] = dict(
+            pts=pts, rounds=rounds, c=c, nb=nb, rows=rows, entries=entries, partials=partials,
+            heavy=heavy if k == log2n else None, tr_err=tr_err, tr_plain_ms=tr_plain_ms,
+            rw_err=rw_err, rw_plain_ms=rw_plain_ms)
 
     # edge sets at the small shape, against the host oracle: one bucket holds
     # every partial (a single CTA merges them); a sparse set of random digits
-    r = runs[log2n_small]
+    small_key, main_key = (log2n_small, optimal_window(1 << log2n_small)), (log2n, optimal_window(1 << log2n))
+    r = runs[small_key]
     rows, nb = r["rows"], r["nb"]
     m = rows.shape[0]
     sparse = torch.zeros((1, m), dtype=torch.int32)
@@ -921,14 +946,14 @@ def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) 
         want = msm_kernels.plain_bucket_reduce_wide(partials, nb)
         for rb in (None, 1):
             if not same(msm_kernels.bucket_reduce_wide(partials, nb, rb), want):
-                fail("kernels", f"bucket_reduce_wide disagrees with its plain version ({case}, {rb} buckets per CTA)")
+                fail("kernels", f"bucket_reduce_wide disagrees with its plain version ({case}, {rb} buckets per cluster)")
         if jacobian_to_host(want) != [host_entry_sum(ent, digits[0].tolist())]:
             fail("kernels", f"bucket_reduce_wide disagrees with the host oracle ({case})")
 
     # timing at the main shape: K3f (also at the small one), K3a over the
     # table's rows, K3b-wide (also on one set and on a one-bucket set of
     # every entry)
-    r, rs = runs[log2n], runs[log2n_small]
+    r, rs = runs[main_key], runs[small_key]
     pts, rounds, c, nb, partials = r["pts"], r["rounds"], r["c"], r["nb"], r["partials"]
     n = pts.x.shape[1]
     b_ms, b_by = bound(n * (2 * ELEM_BYTES + 1) + (rounds - 1) * n * JAC_BYTES,
@@ -955,23 +980,94 @@ def check_precomputed(device, log2n_small: int, log2n: int, rng, records: list) 
     sets, k = partials.bucket.shape
     one = msm_kernels.Partials(partials.bucket[:1].contiguous(),
                                JacobianPoints(*(t[..., :k].contiguous() for t in partials.points)))
-    m = r["rows"].shape[0]
-    heavy = msm_kernels.bucket_accumulate_rows(
-        msm_kernels.sort_rounds(one_bucket_digits(m, m).to(device), nb), r["rows"], nb, MSM_BLOCK)
-    if not same(msm_kernels.bucket_reduce_wide(heavy, nb), msm_kernels.plain_bucket_reduce_wide(heavy, nb)):
-        fail("kernels", "bucket_reduce_wide disagrees with its plain version on a one-bucket set of every entry")
+    heavy = r["heavy"]
     b_ms, b_by = bound(sets * k * (JAC_BYTES + 4) + sets * JAC_BYTES,
                        wide_adds(partials.bucket, nb) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)
+    other = {f"c{run['c']}": run for key, run in runs.items() if key != main_key}
     records.append({
         "name": "bucket_reduce_wide", "module": "msm", "op": "bucket_reduce_wide", "route": "cuda",
         "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["bucket_reduce_wide"],
-        "shape": [sets, k, nb], "range_buckets": msm_kernels.WIDE_RANGE_BUCKETS,
-        "max_abs_err": max(r["rw_err"], rs["rw_err"]),
+        "shape": [sets, k, nb], "c": c,
+        "range_buckets": msm_kernels.wide_range_buckets(nb, sets, device) if device.type == "cuda" else None,
+        "max_active_clusters": msm_kernels.wide_max_clusters(nb, device) if device.type == "cuda" else None,
+        "max_abs_err": max(run["rw_err"] for run in runs.values()),
         "ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(partials, nb), device, 10),
         "plain_ms": r["rw_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "one_set_ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(one, nb), device, 10),
         "one_bucket_set_ms": time_ms(lambda: msm_kernels.bucket_reduce_wide(heavy, nb), device, 3),
         "one_bucket_set_partials": int((heavy.bucket < nb).sum()),
+        **{f"{name}_shape": list(run["partials"].bucket.shape) + [run["nb"]] for name, run in other.items()},
+        **{f"{name}_ms": time_ms(lambda run=run: msm_kernels.bucket_reduce_wide(run["partials"], run["nb"]), device, 10)
+           for name, run in other.items()},
+        **{f"{name}_bound_ms": bound(
+            run["partials"].bucket.numel() * (JAC_BYTES + 4) + run["partials"].bucket.shape[0] * JAC_BYTES,
+            wide_adds(run["partials"].bucket, run["nb"]) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)[0]
+           for name, run in other.items()},
+    })
+
+
+def glv_edge_scalars(n: int, rng) -> list:
+    """n seeded Fr scalars with edge values in front: 0, 1, r-1, lambda and
+    its neighbours, 2^126 - 1 (k1 all ones, so every window but the top one
+    carries), 2^126, and 2^126 - (2^126 - 1) lambda (k2 all ones)."""
+    lam, ones = FR_PARAMS.cube_root, (1 << 126) - 1
+    edge = [0, 1, FR_MODULUS - 1, lam, lam - 1, lam + 1, ones, 1 << 126, ((1 << 126) - ones * lam) % FR_MODULUS]
+    return edge + rand_values(n - len(edge), FR_MODULUS, rng)
+
+
+def host_signed_digits(half: int, c: int) -> list:
+    """Signed c-bit digits of a 128-bit half with the borrow recoding, LSB
+    window first, and the final carry, in Python integers."""
+    out, carry = [], 0
+    for r in range(-(-wnaf.HALF_BITS // c)):
+        v = ((half >> (r * c)) & ((1 << c) - 1)) + carry
+        carry = int(v >= 1 << (c - 1))
+        out.append(v - (carry << c))
+    return out + [carry]
+
+
+def host_glv_digits(scalars: list, c: int) -> list:
+    """One set's digits in K4's layout - per round, the digits of every k1,
+    then of every k2 - from the host split (fields/glv.py)."""
+    halves = [split_into_endomorphism_scalars(k) for k in scalars]
+    rows = [host_signed_digits(a, c) for a, _ in halves] + [host_signed_digits(b, c) for _, b in halves]
+    return [row[r] for r in range(len(rows[0])) for row in rows]
+
+
+def check_glv_digits(device, log2n: int, rng, records: list) -> None:
+    """K4 against its plain version (the eager split and signed digits, run on
+    the card), exactly, for c = 8, 10 and 13: on 64 edge and random scalars
+    in one set (also against the host oracle) and on 3 x 2^log2n scalars in
+    three sets with the table's padding. Timed at c = 10 (the 2^16 prove's
+    window) with its bound; c = 8 and 13 beside it."""
+    fr = get_fr(device)
+    edge = glv_edge_scalars(64, rng)
+    n = 1 << log2n
+    wide = torch.cat([fr.encode(rand_values(n, FR_MODULUS, rng)) for _ in range(3)], dim=1)
+    err, ms_by_c = 0, {}
+    for c in (8, 10, 13):
+        rounds = msm_kernels.digit_rounds(c)
+        got = msm_kernels.glv_digits(fr.encode(edge), 1, c, rounds * 2 * len(edge))
+        if got[0].tolist() != host_glv_digits(edge, c):
+            fail("kernels", f"glv_digits disagrees with the host oracle on the edge scalars (c = {c})")
+        m = -(-rounds * 2 * n // MSM_BLOCK) * MSM_BLOCK
+        for scalars, sets, width in ((fr.encode(edge), 1, rounds * 2 * len(edge)), (wide, 3, m)):
+            got = msm_kernels.glv_digits(scalars, sets, c, width)
+            want = msm_kernels.plain_glv_digits(scalars, sets, c, width)
+            err = max(err, int((got - want).abs().max()))
+        if err:
+            fail("kernels", f"glv_digits disagrees with its plain version (c = {c})")
+        ms_by_c[c] = time_ms(lambda: msm_kernels.glv_digits(wide, 3, c, m), device, 20)
+    c = 10
+    m = -(-msm_kernels.digit_rounds(c) * 2 * n // MSM_BLOCK) * MSM_BLOCK
+    b_ms, b_by = bound(3 * n * ELEM_BYTES + 3 * m * 4, 3 * n * GLV_IMADS_PER_SCALAR)
+    records.append({
+        "name": "glv_digits", "module": "msm", "op": "glv_digits", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["glv_digits"],
+        "shape": [18, 3 * n], "sets": 3, "c": c, "m": m, "max_abs_err": err, "ms": ms_by_c[c],
+        "ms_by_c": ms_by_c,
+        "plain_ms": time_ms(lambda: msm_kernels.plain_glv_digits(wide, 3, c, m), device, 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
 
 
@@ -1000,10 +1096,15 @@ OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"),
 def reset_counts() -> None:
     for mod in COUNTED.values():
         mod.reset_counts()
+    wnaf.reset_counts()
 
 
 def read_counts() -> dict:
-    return {name: dict(mod.launch_counts) for name, mod in COUNTED.items()}
+    """The kernel wrappers' launches, and the eager GLV split's limb products
+    on CUDA tensors (which K4 replaces) under "eager"."""
+    counts = {name: dict(mod.launch_counts) for name, mod in COUNTED.items()}
+    counts["eager"] = dict(wnaf.cuda_counts)
+    return counts
 
 
 def read_single_lane() -> dict:
@@ -1025,14 +1126,15 @@ def window_faults(counts: dict, naive_calls: int, srs_generations: int, table_ca
     the lane-wise chains and the prover commits through the precomputed
     table from 2^10 gates: no lane-wise point doubling or mixed add, one K3d
     launch per naive MSM, one K3e launch per SRS generation, and per
-    commitment call through the table one K3a and one K3b-wide launch (one
-    K3f for the table), with no per-round K3b, no Horner combine and, where
+    commitment call through the table one K4, one K3a and one K3b-wide
+    launch (one K3f for the table), with no per-round K3b, no Horner
+    combine, no limb product of the eager GLV split on the card and, where
     no MSM is naive, no lane-wise add (the naive MSM's tree sums)."""
     want = {("point", "dbl"): 0, ("point", "mixed_add"): 0,
             ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations,
             ("point", "table_rows"): min(1, table_calls), ("msm", "bucket_accumulate"): table_calls,
-            ("msm", "bucket_reduce_wide"): table_calls, ("msm", "bucket_reduce"): 0,
-            ("msm", "window_combine"): 0}
+            ("msm", "bucket_reduce_wide"): table_calls, ("msm", "glv_digits"): table_calls,
+            ("msm", "bucket_reduce"): 0, ("msm", "window_combine"): 0, ("eager", "mul_full_const"): 0}
     if not naive_calls:
         want[("point", "add")] = 0
     return [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
@@ -1121,7 +1223,8 @@ def main() -> int:
     smb_shapes = ((16, 1), (16, 3), (small, 3), (small, 5))
     check_point_chains(device, smb_shapes, (16, min(lanes, 1 << log2n)), rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
-    check_precomputed(device, 5 if rehearsal else 11, log2n, rng, records)
+    check_precomputed(device, 5 if rehearsal else 11, log2n, () if rehearsal else (13,), rng, records)
+    check_glv_digits(device, 6 if rehearsal else log2n, rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
         fail("kernels", f"timed kernels disagree with their plain versions: {wrong}")
@@ -1202,7 +1305,7 @@ def main() -> int:
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        idle = [f"{mod}.{op}" for mod, c in all_counts.items() for op, v in c.items()
+        idle = [f"{mod}.{op}" for mod in COUNTED for op, v in all_counts[mod].items()
                 if v == 0 and (mod, op) not in OFF_PATH]
         if idle:
             fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")

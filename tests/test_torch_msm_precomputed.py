@@ -22,7 +22,7 @@ from barretenberg_tpu_torch import convert
 from barretenberg_tpu_torch.fields import fr as tfr
 from barretenberg_tpu_torch.fields.params import FQ_CUBE_ROOT, FQ_MODULUS, FR_MODULUS
 from barretenberg_tpu_torch.groups import JacobianPoints
-from barretenberg_tpu_torch.groups.g1 import g1 as tg1, jacobian_to_host, points_to_host
+from barretenberg_tpu_torch.groups.g1 import g1 as tg1, host_to_affine_points, jacobian_to_host, points_to_host
 from barretenberg_tpu_torch.kernels import msm_kernels, point_kernels
 from barretenberg_tpu_torch.msm import (
     batched_msm,
@@ -143,11 +143,12 @@ def _edge_partials(table, tscal):
     return msm_kernels.bucket_accumulate_rows(entries, rows, nb, BLOCK), nb, digits, rows
 
 
-@pytest.mark.parametrize("range_buckets", [None, 1, 2, 7])
+@pytest.mark.parametrize("range_buckets", [None, 1, 2, 7, 8, 64])
 def test_bucket_reduce_wide_ranges_match_uncut(data, range_buckets):
     """K3b-wide's plain version with each set cut into segment-aligned
-    ranges (1, 2, 7 buckets; None uncut) equals the uncut K3b plain
-    version limb for limb, on the MSM's set and on the one-bucket set."""
+    ranges (1, 2, 7, 8, 64 buckets, as the kernel's clusters cut it; None
+    uncut) equals the uncut K3b plain version limb for limb, on the MSM's
+    set and on the one-bucket set."""
     _, _, tscal, *_, table = data
     partials, nb, _, _ = _edge_partials(table, tscal)
     assert int((partials.bucket[1] == 2).sum()) > 1  # the heavy bucket spans blocks
@@ -155,6 +156,81 @@ def test_bucket_reduce_wide_ranges_match_uncut(data, range_buckets):
     want = msm_kernels.plain_bucket_reduce(partials, nb)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(msm_kernels.bucket_reduce_wide(partials, nb, range_buckets).x, want.x)
+
+
+@pytest.mark.parametrize("range_buckets", [None, 1, 7, 64])
+def test_bucket_reduce_wide_on_empty_and_dead_sets(data, range_buckets):
+    """A set of no live entry (every digit 0: every slot dead) and a set whose
+    live entries are all points at infinity (digits only on point 5's
+    entries): both sums are infinity, cut or uncut, and equal the uncut K3b
+    plain version."""
+    *_, table = data
+    nb = 1 << (C - 1)
+    rows = table.entries(BLOCK)
+    m = rows.shape[0]
+    dead = torch.zeros((2, m), dtype=torch.int32)
+    at_inf = torch.arange(m) % (2 * N) % N == 5  # point 5 and its endomorphism image, every round
+    dead[1, at_inf] = torch.arange(int(at_inf.sum()), dtype=torch.int32) % (2 * nb + 1) - nb
+    partials = msm_kernels.bucket_accumulate_rows(msm_kernels.sort_rounds(dead, nb), rows, nb, BLOCK)
+    assert not (partials.bucket[0] < nb).any() and (partials.bucket[1] < nb).any()
+    got = msm_kernels.plain_bucket_reduce_wide(partials, nb, range_buckets)
+    assert all(torch.equal(g, w) for g, w in zip(got, msm_kernels.plain_bucket_reduce(partials, nb)))
+    assert jacobian_to_host(got) == [None, None]
+
+
+def _partials_4096():
+    """c = 13's 4096 buckets at a tiny partial count: one set of 24 slots,
+    13 partials in buckets near both ends (0, 4094, 4095), at the middle
+    (2047, 2048) and a run of five in bucket 7, then dead slots; with the
+    host points of every slot."""
+    nb, k = 4096, 24
+    buckets = [0, 0, 7, 7, 7, 7, 7, 900, 2047, 2048, 4094, 4095, 4095] + [nb] * 11
+    rng = np.random.default_rng(88)
+    host = [host_curve.g1_mul(host_curve.G1_GENERATOR, int(v)) for v in rng.integers(1, 1 << 40, size=k)]
+    pts = tg1("cpu").to_jacobian(host_to_affine_points(host, "cpu"))
+    live = torch.tensor([b < nb for b in buckets])
+    pts = JacobianPoints(*(torch.where(live, t, 0) for t in pts[:3]), ~live)
+    return msm_kernels.Partials(torch.tensor([buckets], dtype=torch.int32), pts), nb, buckets, host
+
+
+@pytest.mark.parametrize("range_buckets", [7, 64, 1000])
+def test_bucket_sums_at_4096_buckets_do_not_depend_on_the_cut(range_buckets):
+    partials, nb, _, _ = _partials_4096()
+    got = msm_kernels.plain_bucket_sums(partials, nb, range_buckets)
+    assert all(torch.equal(g, w) for g, w in zip(got, msm_kernels.plain_bucket_sums(partials, nb)))
+
+
+def test_bucket_reduce_wide_at_4096_buckets():
+    """The window sum sum_b (b + 1) S_b over 4096 buckets against the host
+    (the suffix scans' 24 levels; ~15 s of plain adds on the CPU)."""
+    partials, nb, buckets, host = _partials_4096()
+    want = None
+    for j, b in enumerate(buckets):
+        if b < nb:
+            want = host_curve.g1_add(want, host_curve.g1_mul(host[j], b + 1))
+    assert jacobian_to_host(msm_kernels.bucket_reduce_wide(partials, nb)) == [want]
+
+
+def test_wide_merge_depth_lists_each_levels_lanes():
+    """K3b-wide lists a CTA's slots by merge depth (csrc/msm_kernels.cu
+    ``merge_depth``: min(trailing zeros of end - t, bit length of t - first))
+    and runs level i over the slots deeper than i: in a Python model, those
+    are exactly the lanes level i of the merge writes (end - t a multiple of
+    2^(i+1), t - first >= 2^i), and the levels add up to s - 1 per segment
+    of s partials."""
+    def depth(t, first, end):
+        q = end - t
+        return min(32 if q == 0 else (q & -q).bit_length() - 1, (t - first).bit_length())
+
+    for s in range(1, 140):
+        first, end = 5, 5 + s - 1
+        lanes = range(first, end + 1)
+        levels = max(1, (s - 1).bit_length())
+        for i in range(levels + 1):
+            d = 1 << i
+            writes = {t for t in lanes if t - first >= d and (end - t) % (2 * d) == 0}
+            assert writes == {t for t in lanes if depth(t, first, end) > i}
+        assert sum(depth(t, first, end) for t in lanes) == s - 1
 
 
 def test_bucket_reduce_wide_matches_host_oracle(data):

@@ -12,8 +12,13 @@ number of device operations (kernels and copies) the prove ran, its
 each of the port's kernel wrappers its launches in the traced prove (from
 the wrappers' counters; single-lane launches apart) beside the profiler's
 calls and device time for the CUDA kernel it launches, so that launches x
-(device time per call - bound) can be read from one run. Needs one CUDA
-device.
+(device time per call - bound) can be read from one run. A second traced
+prove runs each prover phase (the methods `construct_proof` calls) inside a
+profiler range fenced by device synchronisations and gives, per phase, its
+wall seconds, device operations and device milliseconds (the sigma bases,
+computed inline, fall under "other"); the phase methods are looked up by
+name, so the tool also runs in a checkout of the port's parent commit.
+Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -48,6 +53,7 @@ KERNEL_NAMES = {
     "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
     "point.scalar_mul_bits": "scalar_mul_bits_kernel", "point.fixed_base": "fixed_base_kernel",
     "point.table_rows": "table_rows_kernel", "msm.bucket_reduce_wide": "bucket_reduce_wide_kernel",
+    "msm.glv_digits": "glv_digits_kernel",
 }
 
 
@@ -65,6 +71,52 @@ def kernel_launches(rows) -> dict:
                 "profiler_calls": sum(r[1] for r in match),
                 "device_seconds": sum(r[2] for r in match) / 1e6,
             }
+    return out
+
+
+# The prover phases construct_proof runs as methods, in order.
+PHASES = ("compute_wire_coefficients", "compute_wire_commitments", "compute_z_coefficients",
+          "compute_z_commitment", "compute_quotient_polynomial", "compute_quotient_commitment",
+          "compute_opening_elements")
+
+
+def fence_phases(prover, device) -> None:
+    """Wrap each phase method of this prover in a profiler range, with a device
+    synchronisation before it and at its end, so that its kernels run inside
+    the range."""
+    for name in PHASES:
+        def fenced(fn=getattr(prover, name), name=name):
+            torch.cuda.synchronize(device)
+            with record_function(f"phase.{name}"):
+                out = fn()
+                torch.cuda.synchronize(device)
+            return out
+        setattr(prover, name, fenced)
+
+
+def phase_breakdown(events) -> dict:
+    """Per phase range: its wall seconds, the device operations (kernels and
+    copies) that started inside it, their device milliseconds, and the three
+    kernels that took most of them."""
+    ranges = [(e.name[len("phase."):], e.time_range.start, e.time_range.end)
+              for e in events if e.name.startswith("phase.") and e.device_type == DeviceType.CPU]
+    out = {name: {"wall_seconds": (t1 - t0) / 1e6, "device_ops": 0, "device_ms": 0.0, "by_kernel": {}}
+           for name, t0, t1 in ranges}
+    out["other"] = {"wall_seconds": None, "device_ops": 0, "device_ms": 0.0, "by_kernel": {}}
+    for e in events:
+        # the phase ranges and device synchronisations show on the device's
+        # timeline too; they are no device operations
+        if e.device_type != DeviceType.CUDA or e.name.startswith("phase.") or "Synchronize" in e.name:
+            continue
+        t = e.time_range.start
+        name = next((nm for nm, t0, t1 in ranges if t0 <= t <= t1), "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        out[name]["device_ops"] += 1
+        out[name]["device_ms"] += ms
+        out[name]["by_kernel"][e.name[:40]] = out[name]["by_kernel"].get(e.name[:40], 0.0) + ms
+    for phase in out.values():
+        top = sorted(phase.pop("by_kernel").items(), key=lambda kv: -kv[1])[:3]
+        phase["top_kernels_ms"] = dict(top)
     return out
 
 
@@ -98,13 +150,22 @@ def main() -> int:
     ]
     rows.sort(key=lambda r: -r[2])
     device_s = sum(r[2] for r in rows) / 1e6
+    kernels = kernel_launches(rows)
+    prover = convert.prover_from_arrays(n, srs, *arrays)
+    fence_phases(prover, device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as fenced:
+        prover.construct_proof()
+    phases = phase_breakdown(fenced.events())
+    fenced_device_s = sum(e.self_device_time_total for e in fenced.key_averages()
+                          if e.device_type == DeviceType.CUDA and not e.key.startswith("phase.")) / 1e6
     print(json.dumps({
         "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
         "device_seconds": device_s, "device_busy_share": device_s / wall,
         "device_ops": sum(r[1] for r in rows),
         "index_select_calls": sum(e.count for e in prof.key_averages() if e.key == "aten::index_select"),
         "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
-        "kernels": kernel_launches(rows),
+        "kernels": kernels,
+        "phases": phases, "fenced_device_seconds": fenced_device_s,
     }))
     return 0
 
