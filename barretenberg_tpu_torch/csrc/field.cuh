@@ -62,6 +62,13 @@ __device__ __forceinline__ void fe_store(uint32_t* __restrict__ base, long limb_
     }
 }
 
+__device__ __forceinline__ fe fe_zero() {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = 0;
+    return r;
+}
+
 __device__ __forceinline__ fe fe_one(const FieldConst& fc) {
     fe r;
 #pragma unroll

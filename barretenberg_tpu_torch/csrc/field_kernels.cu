@@ -2,8 +2,10 @@
 // pow (a^e for an exponent the host knows, the whole square-and-multiply
 // chain in one launch). One thread per lane; operands are addressed by
 // (limb stride, lane stride) so a broadcast (18, 1) operand (lane stride 0)
-// or a strided view needs no materialised copy. Plain C interface for
-// ctypes; see field.cuh.
+// or a strided view needs no materialised copy. And scan: a whole inclusive
+// prefix (or suffix) product, or the affine recurrence d_i = m_i d_{i-1} +
+// b_i, along each row of an (18, rows, n) array in one launch. Plain C
+// interface for ctypes; see field.cuh.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -58,6 +60,337 @@ field_pow_kernel(const uint32_t* __restrict__ a, long a_ls, long a_ns,
         if ((e.w[i >> 5] >> (i & 31)) & 1u) acc = fe_mul(acc, x, fc);
     }
     fe_store(out + lane, n, acc);
+}
+
+// ---------------------------------------------------------------------------
+// scan
+// ---------------------------------------------------------------------------
+// A scan value: (m) for a product, (m, b) for the affine recurrence, whose
+// combine of an earlier f and a later s is (m_s m_f, m_s b_f + b_s). Field
+// products and sums are exact and fe_mul's output canonical, so every
+// association gives the same limbs: the tiles, warps and threads below
+// group the combines as they like and still equal the plain version's
+// Hillis-Steele levels bit for bit.
+enum ScanMode { SCAN_PROD = 0, SCAN_AFFINE = 1 };
+
+#define SCAN_THREADS 128
+#define SCAN_ITEMS 8                              // consecutive elements per thread
+#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)     // elements per CTA
+#define SCAN_WARPS (SCAN_THREADS / 32)
+#define SCAN_PAD(e) ((e) + ((e) >> 5))            // one spare word per 32: conflict-free
+#define SCAN_SLOTS SCAN_PAD(SCAN_TILE + 16)       // the tile, then 16 slots of CTA totals
+#define SLOT_WTOT SCAN_TILE                       // + w: warp w's total
+#define SLOT_WEX (SCAN_TILE + SCAN_WARPS)         // + w: what precedes warp w in the tile
+#define SLOT_AGG (SCAN_TILE + 2 * SCAN_WARPS)     // the tile's total
+#define SLOT_EXCL (SLOT_AGG + 1)                  // what precedes the tile in its row
+enum { FLAG_NONE = 0, FLAG_AGG = 1, FLAG_INC = 2 };
+
+template <int MODE>
+struct Sv {
+    fe m, b;
+};
+
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_identity(const FieldConst& fc) {
+    Sv<MODE> r;
+    r.m = fe_one(fc);
+    r.b = fe_zero();
+    return r;
+}
+
+// f earlier, s later.
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_combine(const Sv<MODE>& f, const Sv<MODE>& s, const FieldConst& fc) {
+    Sv<MODE> r;
+    r.m = fe_mul(s.m, f.m, fc);
+    r.b = MODE == SCAN_AFFINE ? fe_add(fe_mul(s.m, f.b, fc), s.b, fc) : s.b;
+    return r;
+}
+
+// Shared memory: word k of component c of slot e at sm[(c * 9 + k) * SCAN_SLOTS + SCAN_PAD(e)].
+template <int MODE>
+__device__ __forceinline__ void sv_put(uint32_t* sm, int e, const Sv<MODE>& v) {
+    const int p = SCAN_PAD(e);
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) sm[k * SCAN_SLOTS + p] = v.m.v[k];
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) sm[(FE_LIMBS + k) * SCAN_SLOTS + p] = v.b.v[k];
+    }
+}
+
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_get(const uint32_t* sm, int e) {
+    const int p = SCAN_PAD(e);
+    Sv<MODE> v;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) v.m.v[k] = sm[k * SCAN_SLOTS + p];
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) v.b.v[k] = sm[(FE_LIMBS + k) * SCAN_SLOTS + p];
+    }
+    return v;
+}
+
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_shfl_up(const Sv<MODE>& v, int d) {
+    Sv<MODE> r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) r.m.v[k] = __shfl_up_sync(0xffffffffu, v.m.v[k], d);
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) r.b.v[k] = __shfl_up_sync(0xffffffffu, v.b.v[k], d);
+    }
+    return r;
+}
+
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_shfl_down(const Sv<MODE>& v, int d) {
+    Sv<MODE> r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) r.m.v[k] = __shfl_down_sync(0xffffffffu, v.m.v[k], d);
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) r.b.v[k] = __shfl_down_sync(0xffffffffu, v.b.v[k], d);
+    }
+    return r;
+}
+
+// A tile's published value (its total, or its inclusive prefix in the row):
+// 18 words per slot, written by one thread before its flag, read through L2.
+template <int MODE>
+__device__ __forceinline__ void sv_publish(uint32_t* slot, const Sv<MODE>& v) {
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) slot[k] = v.m.v[k];
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) slot[FE_LIMBS + k] = v.b.v[k];
+    }
+}
+
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> sv_read(const uint32_t* slot) {
+    Sv<MODE> v;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) v.m.v[k] = __ldcg(slot + k);
+    if (MODE == SCAN_AFFINE) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) v.b.v[k] = __ldcg(slot + FE_LIMBS + k);
+    }
+    return v;
+}
+
+struct ScanArgs {
+    const uint32_t* a;  // the product's operand, or m
+    long a_ls, a_rs, a_ns;
+    const uint32_t* b;  // the affine recurrence's b
+    long b_ls, b_rs, b_ns;
+    uint32_t* out;      // (18, rows, n), contiguous
+    int rows;
+    long n;
+    int tiles;          // tiles per row
+    int reverse;        // 1: suffix scan (the product only)
+    int* counter;       // the next tile to take, zeroed before the launch
+    int* flags;         // (rows * tiles) FLAG_*, zeroed before the launch
+    uint32_t* agg;      // (rows * tiles, 18) tile totals
+    uint32_t* inc;      // (rows * tiles, 18) inclusive prefixes
+};
+
+// One CTA per tile of SCAN_TILE consecutive elements of one row. Tiles are
+// taken in the order CTAs start (an atomic counter), so every tile a CTA
+// waits on belongs to a CTA already running. The CTA loads its tile into
+// shared memory (coalesced), each thread scans its SCAN_ITEMS consecutive
+// elements serially, the thread totals are scanned across each warp with
+// shuffles and the warp totals by one thread; the tile's total is
+// published at once, and warp 0 then looks back over the tiles before it
+// (decoupled look-back: 32 tiles a step, each read as its inclusive prefix
+// if published, else its total, stopping at the nearest inclusive prefix)
+// for what precedes the tile, and publishes the tile's own inclusive
+// prefix. Every element then takes its prefix with one combine, and the
+// tile is stored coalesced.
+template <int MODE>
+__global__ void __launch_bounds__(SCAN_THREADS)
+field_scan_kernel(ScanArgs s, FieldConst fc) {
+    extern __shared__ uint32_t sm[];
+    __shared__ int tile_id;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) tile_id = atomicAdd(s.counter, 1);
+    __syncthreads();
+    const int id = tile_id;
+    const int row = id / s.tiles, t = id % s.tiles;
+    const long first = (long)t * SCAN_TILE;
+    const Sv<MODE> ident = sv_identity<MODE>(fc);
+
+    // load the tile (positions past n hold the identity)
+    for (int e = tid; e < SCAN_TILE; e += SCAN_THREADS) {
+        const long pos = first + e;
+        Sv<MODE> x = ident;
+        if (pos < s.n) {
+            const long i = s.reverse ? s.n - 1 - pos : pos;
+            x.m = fe_load(s.a + row * s.a_rs + i * s.a_ns, s.a_ls);
+            if (MODE == SCAN_AFFINE) x.b = fe_load(s.b + row * s.b_rs + i * s.b_ns, s.b_ls);
+        }
+        sv_put<MODE>(sm, e, x);
+    }
+    __syncthreads();
+
+    // each thread's run, inclusive, in place
+    const int e0 = tid * SCAN_ITEMS;
+    Sv<MODE> run = sv_get<MODE>(sm, e0);
+#pragma unroll 1
+    for (int j = 1; j < SCAN_ITEMS; ++j) {
+        run = sv_combine<MODE>(run, sv_get<MODE>(sm, e0 + j), fc);
+        sv_put<MODE>(sm, e0 + j, run);
+    }
+    // the warp's inclusive scan of the thread totals
+#pragma unroll 1
+    for (int d = 1; d < 32; d <<= 1) {
+        const Sv<MODE> o = sv_shfl_up<MODE>(run, d);
+        if (lane >= d) run = sv_combine<MODE>(o, run, fc);
+    }
+    Sv<MODE> lane_ex = sv_shfl_up<MODE>(run, 1);
+    if (lane == 0) lane_ex = ident;
+    if (lane == 31) sv_put<MODE>(sm, SLOT_WTOT + warp, run);
+    __syncthreads();
+
+    uint32_t* my_agg = s.agg + (long)id * 2 * FE_LIMBS;
+    uint32_t* my_inc = s.inc + (long)id * 2 * FE_LIMBS;
+    volatile int* flags = s.flags;
+    if (tid == 0) {
+        Sv<MODE> acc = ident;
+#pragma unroll 1
+        for (int w = 0; w < SCAN_WARPS; ++w) {
+            sv_put<MODE>(sm, SLOT_WEX + w, acc);
+            acc = w == 0 ? sv_get<MODE>(sm, SLOT_WTOT) : sv_combine<MODE>(acc, sv_get<MODE>(sm, SLOT_WTOT + w), fc);
+        }
+        sv_put<MODE>(sm, SLOT_AGG, acc);
+        sv_publish<MODE>(t == 0 ? my_inc : my_agg, acc);
+        __threadfence();
+        flags[id] = t == 0 ? FLAG_INC : FLAG_AGG;
+    }
+    __syncthreads();
+
+    // warp 0: decoupled look-back for what precedes the tile
+    if (warp == 0) {
+        Sv<MODE> excl = ident;
+        if (t > 0) {
+            const int row0 = id - t;  // the row's first tile
+            int look = t - 1;         // the tile lane 0 inspects
+#pragma unroll 1
+            while (true) {
+                const int k = look - lane;
+                int f = FLAG_INC;     // lanes before the row's first tile: the identity
+                if (k >= 0) {
+                    // the tile's CTA is running and publishes within microseconds;
+                    // a flag still unset after ~2^22 polls is a fault: abort the
+                    // launch rather than hang the card
+                    int polls = 0;
+                    do {
+                        f = flags[row0 + k];
+                        if (++polls == (1 << 22)) __trap();
+                    } while (f == FLAG_NONE);
+                }
+                __threadfence();
+                Sv<MODE> v = ident;
+                if (k >= 0) v = sv_read<MODE>((f == FLAG_INC ? s.inc : s.agg) + (long)(row0 + k) * 2 * FE_LIMBS);
+                const unsigned incs = __ballot_sync(0xffffffffu, f == FLAG_INC);
+                const int stop = incs ? __ffs(incs) - 1 : 31;  // lanes 0..stop count
+                if (lane > stop) v = ident;
+                // lane L holds a later tile than lane L + 1: fold lanes [L, L + 2d)
+#pragma unroll 1
+                for (int d = 1; d < 32; d <<= 1) {
+                    const Sv<MODE> o = sv_shfl_down<MODE>(v, d);
+                    if (lane + d < 32) v = sv_combine<MODE>(o, v, fc);
+                }
+                excl = sv_combine<MODE>(v, excl, fc);  // lane 0's is the one kept
+                if (incs) break;
+                look -= 32;
+            }
+        }
+        if (lane == 0) {
+            sv_put<MODE>(sm, SLOT_EXCL, excl);
+            if (t > 0) {
+                sv_publish<MODE>(my_inc, sv_combine<MODE>(excl, sv_get<MODE>(sm, SLOT_AGG), fc));
+                __threadfence();
+                flags[id] = FLAG_INC;
+            }
+        }
+    }
+    __syncthreads();
+
+    // every element takes what precedes its thread's run
+    const Sv<MODE> pre = sv_combine<MODE>(
+        sv_combine<MODE>(sv_get<MODE>(sm, SLOT_EXCL), sv_get<MODE>(sm, SLOT_WEX + warp), fc), lane_ex, fc);
+#pragma unroll 1
+    for (int j = 0; j < SCAN_ITEMS; ++j) sv_put<MODE>(sm, e0 + j, sv_combine<MODE>(pre, sv_get<MODE>(sm, e0 + j), fc));
+    __syncthreads();
+
+    // store the tile (coalesced): the product, or the recurrence's d
+    const long ls = (long)s.rows * s.n;
+    for (int e = tid; e < SCAN_TILE; e += SCAN_THREADS) {
+        const long pos = first + e;
+        if (pos >= s.n) break;
+        const long i = s.reverse ? s.n - 1 - pos : pos;
+        const Sv<MODE> v = sv_get<MODE>(sm, e);
+        fe_store(s.out + row * s.n + i, ls, MODE == SCAN_AFFINE ? v.b : v.m);
+    }
+}
+
+template <int MODE>
+static int launch_scan(const ScanArgs& args, const FieldConst& fc, cudaStream_t stream) {
+    const size_t smem = sizeof(uint32_t) * (MODE == SCAN_AFFINE ? 2 : 1) * FE_LIMBS * SCAN_SLOTS;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(field_scan_kernel<MODE>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    field_scan_kernel<MODE><<<(unsigned)((long)args.rows * args.tiles), SCAN_THREADS, smem, stream>>>(args, fc);
+    return (int)cudaGetLastError();
+}
+
+// mode: 0 the product of a (reverse: 1 for the suffix product; b unused),
+// 1 the affine recurrence with m = a. Element i of row r of an operand is
+// at base + r * rs + i * ns, limb stride ls; out is (18, rows, n)
+// contiguous; state: state_words int32 words of scratch, at least the tile
+// counter and flags, then each tile's total and inclusive prefix (18 words
+// each) - 1 + 37 words per tile of SCAN_TILE elements (the flags are zeroed
+// here).
+extern "C" int bb_field_scan(int mode, int reverse, const void* a, long a_ls, long a_rs, long a_ns,
+                             const void* b, long b_ls, long b_rs, long b_ns, void* out, int rows, long n,
+                             void* state, long state_words, const uint32_t* consts, void* stream) {
+    if (rows <= 0 || n <= 0) return 0;
+    if (mode == SCAN_AFFINE && reverse) return (int)cudaErrorInvalidValue;
+    const long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+    if ((long)rows * tiles > 0x7fffffffL || state_words < 1 + (long)rows * tiles * (1 + 4 * FE_LIMBS))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    int* words = (int*)state;
+    cudaError_t e = cudaMemsetAsync(words, 0, sizeof(int) * (1 + rows * tiles), st);
+    if (e != cudaSuccess) return (int)e;
+    ScanArgs args;
+    args.a = (const uint32_t*)a;
+    args.a_ls = a_ls;
+    args.a_rs = a_rs;
+    args.a_ns = a_ns;
+    args.b = (const uint32_t*)b;
+    args.b_ls = b_ls;
+    args.b_rs = b_rs;
+    args.b_ns = b_ns;
+    args.out = (uint32_t*)out;
+    args.rows = rows;
+    args.n = n;
+    args.tiles = (int)tiles;
+    args.reverse = reverse;
+    args.counter = words;
+    args.flags = words + 1;
+    args.agg = (uint32_t*)(words + 1 + rows * tiles);
+    args.inc = args.agg + rows * tiles * 2 * FE_LIMBS;
+    const FieldConst fc = field_const_from_host(consts);
+    switch (mode) {
+        case SCAN_PROD: return launch_scan<SCAN_PROD>(args, fc, st);
+        case SCAN_AFFINE: return launch_scan<SCAN_AFFINE>(args, fc, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // consts: 19 words = p[9], one[9], ninv (30-bit limbs), host memory.

@@ -8,7 +8,10 @@
 // of a new bucket emits (bucket, sum) and restarts the sum from the entry.
 // Emitted partials go straight to their compacted slot: offsets[] holds
 // each block's first slot (the prefix count of the runs of the blocks
-// before it in its round).
+// before it in its round). Each walk prefetches its next point-table row
+// into registers while it adds the current one, and the caller picks
+// `block` per call so that the walks fill the card
+// (msm_kernels.accumulate_block).
 //
 // K3b bucket_reduce: one CTA per round runs, level by level with a CTA
 // barrier between levels, (1) the Kogge-Stone segmented inclusive scan
@@ -63,7 +66,8 @@
 
 namespace cg = cooperative_groups;
 
-#define ACC_THREADS 64
+#define ACC_THREADS 128   // K3a: walks per CTA
+#define ACC_MIN_BLOCKS 3  // K3a: __launch_bounds__' minimum of resident CTAs per SM
 #define REDUCE_THREADS 256
 #define WIDE_CLUSTER 8  // K3b-wide: CTAs per cluster (the portable cluster size)
 #define DIGIT_THREADS 128
@@ -102,7 +106,7 @@ __device__ __forceinline__ jpt load_pt_cg(const Pts& p, long lane, long stride) 
 // coalesce). offsets: (rounds, nblocks). Outputs (rounds * nslots lanes)
 // arrive filled with bucket nbuckets at infinity (zero coordinates); the
 // kernel overwrites the slots it emits.
-__global__ void __launch_bounds__(ACC_THREADS)
+__global__ void __launch_bounds__(ACC_THREADS, ACC_MIN_BLOCKS)
 bucket_accumulate_kernel(const uint4* __restrict__ table, const int* __restrict__ sidx,
                          const int* __restrict__ sdig, const int* __restrict__ offsets,
                          int* __restrict__ ocd, Pts out, int rounds, int nblocks, int block,
@@ -612,6 +616,19 @@ extern "C" int bb_bucket_accumulate(const void* table, const void* sidx, const v
         (const uint4*)table, (const int*)sidx, (const int*)sdig, (const int*)offsets, (int*)ocd,
         out, rounds, nblocks, block, nslots, nbuckets, field_const_from_host(consts));
     return (int)cudaGetLastError();
+}
+
+// The walks K3a holds resident at once on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs x ACC_THREADS), into
+// *out.
+extern "C" int bb_accumulate_capacity(void* out) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucket_accumulate_kernel, ACC_THREADS, 0);
+    *(int*)out = sms * per_sm * ACC_THREADS;
+    return (int)err;
 }
 
 // scratch32: 6 x 18 x rounds x (nslots + nbuckets) words (two level

@@ -94,13 +94,6 @@ __device__ __forceinline__ jpt jac_add(const fe& x1, const fe& y1, const fe& z1,
 
 #define ROW_WORDS 20  // one point-table row: x, y (9 x 30-bit each), inf, pad
 
-__device__ __forceinline__ fe fe_zero() {
-    fe r;
-#pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = 0;
-    return r;
-}
-
 __device__ __forceinline__ void load_row(const uint4* __restrict__ table, long idx,
                                          uint32_t (&w)[ROW_WORDS]) {
     const uint4* row = table + idx * (ROW_WORDS / 4);

@@ -10,10 +10,11 @@ converts between them homomorphically (params.py).
 
 A ``Field`` holds its constant tensors on one explicit device. Arithmetic
 goes through the ops of kernels/field_kernels.py - ``mul``, ``sqr``,
-``add``, ``sub`` and ``pow`` - which launch the CUDA kernel for a CUDA tensor
-and run the plain PyTorch version for a CPU tensor; ``neg``, ``double``,
-``mul_by_constant`` and every broadcast product are expressed through those,
-so no field arithmetic on the card runs as a chain of eager limb ops.
+``add``, ``sub``, ``pow`` and ``scan`` - which launch the CUDA kernel for a
+CUDA tensor and run the plain PyTorch version for a CPU tensor; ``neg``,
+``double``, ``mul_by_constant``, every broadcast product and the scans
+(``prefix_product``, ``affine_scan``) are expressed through those, so no
+field arithmetic on the card runs as a chain of eager limb ops.
 """
 
 from __future__ import annotations
@@ -172,13 +173,11 @@ class Field:
         """Montgomery batch inversion along a batch dim: two prefix-product
         scans and one Fermat inversion of the total. Zero entries map to
         garbage (as in the reference); callers mask them out."""
-        from ..utils.scans import hillis_scan
-
         mul = self.mont_mul
         n = a.shape[dim]
-        prefix = hillis_scan(mul, a, dim=dim)
+        prefix = self.prefix_product(a, dim)
         total_inv = self.invert(prefix.narrow(dim, n - 1, 1))
-        suffix = hillis_scan(mul, a, dim=dim, reverse=True)
+        suffix = self.prefix_product(a, dim, reverse=True)
         # inv_i = prefix_{i-1} * suffix_{i+1} * total_inv
         ones_shape = list(a.shape)
         ones_shape[dim] = 1
@@ -186,6 +185,19 @@ class Field:
         pre = torch.cat([ones, prefix.narrow(dim, 0, n - 1)], dim=dim)
         suf = torch.cat([suffix.narrow(dim, 1, n - 1), ones], dim=dim)
         return mul(mul(pre, suf), total_inv)
+
+    # ------------------------------------------------------------------
+    # Scans: one launch of K1's scan on the card, the Hillis-Steele loops of
+    # utils/scans.py on the CPU
+    # ------------------------------------------------------------------
+    def prefix_product(self, a, dim: int = 1, reverse: bool = False):
+        """Inclusive prefix (suffix if reverse) product along batch dim `dim`."""
+        return field_kernels.prefix_product(self.params, a, dim, reverse)
+
+    def affine_scan(self, m, b, dim: int = 1):
+        """The affine recurrence d_i = m_i d_{i-1} + b_i (d_0 = b_0) along
+        batch dim `dim`; m broadcasts against b (m_0 is never read)."""
+        return field_kernels.affine_scan(self.params, m, b, dim)
 
     # ------------------------------------------------------------------
     # Misc

@@ -113,6 +113,7 @@ _SIGNATURES = {
     "field_kernels": {
         "bb_field_op": [_I, _VP, _L, _L, _VP, _L, _L, _VP, _L, _VP, _VP],
         "bb_field_pow": [_VP, _L, _L, _VP, _L, _VP, _I, _VP, _VP],
+        "bb_field_scan": [_I, _I, _VP, _L, _L, _L, _VP, _L, _L, _L, _VP, _I, _L, _VP, _L, _VP, _VP],
     },
     "butterfly": {
         "bb_butterfly_stage": [_VP, _VP, _L, _L, _VP, _L, _L, _L, _VP, _VP],
@@ -129,6 +130,7 @@ _SIGNATURES = {
     },
     "msm_kernels": {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
+        "bb_accumulate_capacity": [_VP],
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
         "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 4 + [_VP, _VP],
         "bb_wide_max_clusters": [_I, _VP],

@@ -29,8 +29,28 @@ per inversion before), with the accumulator in registers; the exponent
 arrives by value (no device copy) and every lane reads the same bit, so
 lanes never diverge.
 
+``scan`` replaces the ``fori_loop`` of ``_mul_fn`` (and of ``add``) in
+``utils/scans.py:19-62`` (``hillis_scan``, ``affine_scan``): an inclusive
+prefix or suffix product, or the affine recurrence d_i = m_i d_{i-1} + b_i,
+along each row of an ``(18, rows, n)`` array. The port ran those loops
+eagerly, each of their log2(n) levels a ``roll``, a mask, a ``where`` and
+one or three K1 launches: 16-18 levels of host launch path per scan at the
+prove's sizes, n log2 n products. What bounds the kernel on the card:
+bytes and operations about equally - 72 bytes in and out per element and
+about 2n products (3n for the recurrence), ~3 us each at 2^16. What the
+design does about it: one launch runs the whole scan with about 2n
+products (``csrc/field_kernels.cu``): each CTA loads a tile of 1,024
+elements into shared memory, each thread scans 8 consecutive ones in
+registers, the thread totals are scanned across the warp by shuffles and
+across the CTA by one thread, and the tiles chain by decoupled look-back
+(each tile publishes its total at once and its inclusive prefix when it
+has it; warp 0 folds up to 32 earlier tiles per step). Field products and
+sums are exact and canonical, so any grouping gives the plain version's
+limbs bit for bit, ``batch_invert``'s values at zero entries included.
+
 A CUDA tensor always launches the kernel (or raises); a CPU tensor always
-takes the plain version (``limb_ops.LimbField``).
+takes the plain version (``limb_ops.LimbField``; for ``scan``, the
+Hillis-Steele loops of ``utils/scans.py``).
 """
 
 from __future__ import annotations
@@ -41,16 +61,20 @@ import numpy as np
 import torch
 
 from ..fields.params import NUM_LIMBS, FieldParams
+from ..utils import scans
 from . import build
 from .limb_ops import LimbField
 
 L = NUM_LIMBS
 _OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3}
 EXP_WORDS = 8  # csrc/field_kernels.cu: pow takes exponents of up to 256 bits
+SCAN_TILE = 1024  # csrc/field_kernels.cu SCAN_TILE: elements per CTA of scan
+SCAN_WORDS_PER_TILE = 1 + 4 * 9  # a tile's flag, total and inclusive prefix
+_SCAN_MODES = {"prod": 0, "affine": 1}
 
 # Kernel launches per op since the counters were last reset (reset_counts),
 # and how many of them ran one lane.
-launch_counts = {op: 0 for op in (*_OPS, "pow")}
+launch_counts = {op: 0 for op in (*_OPS, "pow", "scan")}
 single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
@@ -95,6 +119,19 @@ def plain_pow(params: FieldParams, a, exponent: int):
         if (exponent >> (nbits - 1 - i)) & 1:
             acc = lf.mont_mul(acc, a)
     return acc
+
+
+def plain_prefix_product(params: FieldParams, a, dim: int, reverse: bool = False):
+    """The plain PyTorch version of ``scan``'s product (any device): the
+    Hillis-Steele levels of ``utils/scans.py``."""
+    return scans.hillis_scan(limb_field(params).mont_mul, a, dim, reverse)
+
+
+def plain_affine_scan(params: FieldParams, m, b, dim: int):
+    """The plain PyTorch version of ``scan``'s affine recurrence (any
+    device); m and b have one shape."""
+    lf = limb_field(params)
+    return scans.affine_scan(lf.mont_mul, lf.add, m, b, dim)
 
 
 def _launch(params: FieldParams, op: str, a, b):
@@ -149,6 +186,41 @@ def _launch_pow(params: FieldParams, a, exponent: int):
     return out.reshape(shape)
 
 
+def _scan_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t` with `dim` moved last, as an (18, rows, n) view (a copy only if
+    its batch dims do not flatten)."""
+    if t.dtype != torch.int32 or not t.is_cuda or t.shape[0] != L or dim % t.ndim == 0:
+        raise ValueError(
+            f"scan kernel takes (18, ..., n) int32 CUDA tensors scanned along a batch dim, "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device}, dim {dim}"
+        )
+    t = t.movedim(dim, -1)
+    return t.unsqueeze(1) if t.ndim == 2 else t if t.ndim == 3 else t.reshape(L, -1, t.shape[-1])
+
+
+def _launch_scan(params: FieldParams, mode: str, a, b, dim: int, reverse: bool):
+    moved = a.movedim(dim, -1).shape
+    a3 = _scan_rows(a, dim)
+    b3 = a3 if b is None else _scan_rows(b, dim)
+    if b3.device != a3.device or b3.shape != a3.shape:
+        raise ValueError("scan kernel operands differ in device or shape")
+    _, rows, n = a3.shape
+    out = torch.empty((L, rows, n), dtype=torch.int32, device=a.device)
+    words = 1 + rows * -(-n // SCAN_TILE) * SCAN_WORDS_PER_TILE
+    state = torch.empty(words, dtype=torch.int32, device=a.device)
+    lib = build.get_lib("field_kernels")
+    with torch.cuda.device(a.device):
+        err = lib.bb_field_scan(
+            _SCAN_MODES[mode], int(reverse),
+            a3.data_ptr(), a3.stride(0), a3.stride(1), a3.stride(2),
+            b3.data_ptr(), b3.stride(0), b3.stride(1), b3.stride(2),
+            out.data_ptr(), rows, n, state.data_ptr(), words, build.field_consts(params), build.current_stream(),
+        )
+    build.check(err, f"field_scan[{mode}]")
+    _count("scan", n)
+    return out.reshape(moved).movedim(-1, dim)
+
+
 def _dispatch(params, op, a, b=None):
     if a.is_cuda:
         return _launch(params, op, a, b)
@@ -176,3 +248,19 @@ def pow_static(params: FieldParams, a, exponent: int):
     if a.is_cuda:
         return _launch_pow(params, a, exponent)
     return plain_pow(params, a, exponent)
+
+
+def prefix_product(params: FieldParams, a, dim: int, reverse: bool = False):
+    """Inclusive prefix (suffix if reverse) product along batch dim `dim`."""
+    if a.is_cuda:
+        return _launch_scan(params, "prod", a, None, dim, reverse)
+    return plain_prefix_product(params, a, dim, reverse)
+
+
+def affine_scan(params: FieldParams, m, b, dim: int):
+    """d along batch dim `dim`, d_i = m_i d_{i-1} + b_i, d_0 = b_0 (m_0 is
+    never read, so m may be a broadcast constant); m and b broadcast."""
+    m, b = torch.broadcast_tensors(m, b)
+    if b.is_cuda:
+        return _launch_scan(params, "affine", m, b, dim, False)
+    return plain_affine_scan(params, m, b, dim)

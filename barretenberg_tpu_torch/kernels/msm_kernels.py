@@ -31,7 +31,11 @@ levels are separated by barriers, one CTA per round. What the design does
 about it: all rounds run in one launch, so every walk of the MSM is in
 flight at once; each walk's sum stays in registers and the next entry's
 point-table row (80 bytes, four 16-byte loads, through the sort permutation)
-is loaded while the current one computes; an entry at infinity or of a
+is loaded while the current one computes; the precomputed-table MSM
+picks the walk length per call
+(``accumulate_block``: the longest block whose walks still fill the card,
+from CUDA's occupancy query), since at 2^11 points a block of 128 leaves
+most SMs idle; an entry at infinity or of a
 zero digit costs no arithmetic; emitted partials are written straight to
 their compacted slot; K3b skips the adds whose result its scan discards and
 computes the second suffix scan only for the lanes that feed the window sum.
@@ -127,6 +131,42 @@ def wide_max_clusters(nbuckets: int, device) -> int:
         build.check(err, "the bucket_reduce_wide occupancy query")
         n = _max_clusters[key] = out.value
     return n
+
+
+# K3a: the walks an H100 holds resident at K3a's CTA shape (the occupancy
+# query's answer there: 132 SMs x 3 CTAs x 128 threads). A CPU batch picks
+# its block from it, so the CPU path walks the blocks the card would.
+NOMINAL_CAPACITY = 132 * 3 * 128
+ACC_BLOCKS = (8, 16, 32, 64, 128)  # the blocks accumulate_block picks from
+_capacity: dict = {}
+
+
+def accumulate_capacity(device) -> int:
+    """The K3a walks the card holds resident at once (CUDA's occupancy query
+    at K3a's CTA shape and shared memory, times the SMs); NOMINAL_CAPACITY
+    for a CPU device."""
+    if device.type != "cuda":
+        return NOMINAL_CAPACITY
+    n = _capacity.get(device)
+    if n is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = build.get_lib("msm_kernels").bb_accumulate_capacity(ctypes.addressof(out))
+        build.check(err, "the bucket_accumulate occupancy query")
+        n = _capacity[device] = out.value
+    return n
+
+
+def accumulate_block(entries: int, capacity: int) -> int:
+    """K3a's block for a call of ``entries`` sorted entries (all sets), on a
+    card that holds ``capacity`` walks at once: the largest of ACC_BLOCKS
+    whose walks fill the card at least once, else the smallest. A shorter
+    walk puts more of a call's walks in flight, and leaves K3b-wide one
+    partial more per walk to merge."""
+    for block in reversed(ACC_BLOCKS):
+        if entries // block >= capacity:
+            return block
+    return ACC_BLOCKS[0]
 
 
 def wide_range_buckets(nbuckets: int, sets: int, device) -> int:

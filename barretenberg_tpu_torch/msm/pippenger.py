@@ -13,7 +13,9 @@ lanes and no scatter-accumulate:
        |digit| - 1 (kernels/msm_kernels.py::sort_rounds); an entry with a
        negative digit adds -P;
     2. K3a bucket_accumulate: the sorted entries of a round are cut into
-       blocks of `block`, and one thread per (round, block) walks its block,
+       blocks of `block` (for the precomputed table, by default chosen per
+       call so that the walks fill the card), and one thread per (round,
+       block) walks its block,
        summing runs of equal buckets with mixed adds; runs that span block
        boundaries emit partial sums, compacted per round;
     3. K3b bucket_reduce: one CTA per round merges each bucket's partials
@@ -187,9 +189,16 @@ def precomputed_digits(scalars_list, c: int, m: int) -> torch.Tensor:
     return msm_kernels.glv_digits(scalars, len(scalars_list), c, m)
 
 
-def pippenger_precomputed_batch(scalars_list, table: PippengerPointTable, block: int = 128) -> JacobianPoints:
+def pippenger_precomputed_batch(
+    scalars_list, table: PippengerPointTable, block: int | None = None
+) -> JacobianPoints:
     """B MSMs against one precomputed table as B bucket sets: one sort, one
-    K3a and one K3b-wide launch. Returns a (B,) JacobianPoints batch."""
+    K3a and one K3b-wide launch. Returns a (B,) JacobianPoints batch.
+    ``block``: K3a's walk length; by default the one that fills the card
+    for this call's B * rounds * 2N entries (``accumulate_block``)."""
+    if block is None:
+        capacity = msm_kernels.accumulate_capacity(table.rows.device)
+        block = msm_kernels.accumulate_block(len(scalars_list) * table.rounds * 2 * table.n, capacity)
     rows = table.entries(block)
     nbuckets = 1 << (table.c - 1)
     entries = msm_kernels.sort_rounds(precomputed_digits(scalars_list, table.c, rows.shape[0]), nbuckets)
@@ -198,7 +207,7 @@ def pippenger_precomputed_batch(scalars_list, table: PippengerPointTable, block:
 
 
 def pippenger_precomputed(
-    scalars_mont: torch.Tensor, table: PippengerPointTable, block: int = 128
+    scalars_mont: torch.Tensor, table: PippengerPointTable, block: int | None = None
 ) -> JacobianPoints:
     """MSM against a precomputed table: all rounds share one bucket set.
     Returns a JacobianPoints batch (1,)."""

@@ -13,10 +13,11 @@ All polynomial data lives on one device as (18, n) limb tensors; every
 field op, butterfly stage and point op on the card is a launch of one of
 the three CUDA kernels. Challenges are host ints (the keccak transcript is
 inherently sequential host work) that enter the device phases as broadcast
-(18, 1) constants. The reference's 6 serial prefix-product chains become
-log-depth scans. The quotient phase follows the JAX package's per-transform
-("staged") schedule: one transform at a time with the small algebra steps
-in between.
+(18, 1) constants. The reference's serial prefix-product chains and the
+Kate division's recurrence are one K1 scan launch each on the card. The
+quotient phase follows the JAX package's per-transform ("staged")
+schedule: one transform at a time with the small algebra steps in
+between.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from ..msm import batched_msm, pippenger_precomputed_batch
 from ..polynomials import arithmetic, fft
 from ..polynomials.domain import get_domain
 from ..transcript import challenges as fs
-from ..utils.scans import affine_scan, hillis_scan
 from .linearizer import compute_linear_terms
 from .permutation import compute_permutation_lagrange_base
 from .proof import Challenges, Proof
@@ -190,8 +190,8 @@ class Prover:
             ),
             add(add(mul(self.sigma_3, b), g), w_o),
         )
-        pnum = hillis_scan(mul, num, dim=1)
-        pden = hillis_scan(mul, den, dim=1)
+        pnum = fr.prefix_product(num, dim=1)
+        pden = fr.prefix_product(den, dim=1)
         z_tail = mul(pnum, fr.batch_invert(pden))[:, : self.n - 1]
         z_evals = torch.cat([fr.one.reshape(18, 1), z_tail], dim=1)
         self.z_poly = fft.ifft(z_evals, small)
@@ -416,14 +416,12 @@ class Prover:
         """(F(X) - F(z)) / (X - z) via the affine-recurrence scan
         d_i = (c_i - d_{i-1}) * (-1/z) (polynomial_arithmetic.cpp:562-591)."""
         fr = self.fr
-        n = coeffs.shape[1]
         f_val = arithmetic.evaluate(coeffs, point)
         w = (-pow(point, -1, P)) % P
         w_arr, neg_w_arr = self.enc(w), self.enc((-w) % P)
         b0 = fr.mont_mul(fr.sub(coeffs[:, :1], self.enc(f_val)), w_arr)
         b = torch.cat([b0, fr.mont_mul(coeffs, w_arr)[:, 1:]], dim=1)
-        m = torch.cat([fr.one.reshape(18, 1), neg_w_arr.expand(18, n - 1)], dim=1)
-        return affine_scan(fr.mont_mul, fr.add, m, b, dim=1)
+        return fr.affine_scan(neg_w_arr, b, dim=1)  # m_0 is never read: m is -w throughout
 
     # ------------------------------------------------------------------
     def construct_proof(self, timings: dict | None = None) -> Proof:

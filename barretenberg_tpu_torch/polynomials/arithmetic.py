@@ -14,7 +14,6 @@ import torch
 
 from ..fields import fr as _fr
 from ..fields.montgomery import Field
-from ..utils.scans import hillis_scan
 from .domain import EvaluationDomain
 
 
@@ -30,11 +29,11 @@ def tree_sum(fr: Field, x: torch.Tensor) -> torch.Tensor:
 
 
 def powers_table(fr: Field, z_arr: torch.Tensor, n: int) -> torch.Tensor:
-    """(18, n) table of z^k from a (18, 1) z tensor (one log-depth scan)."""
+    """(18, n) table of z^k from a (18, 1) z tensor (one prefix-product scan)."""
     if n == 1:
         return fr.encode([1])
     zs = torch.cat([fr.encode([1]), z_arr.expand(18, n - 1)], dim=1)
-    return hillis_scan(fr.mont_mul, zs, dim=1)
+    return fr.prefix_product(zs, dim=1)
 
 
 def evaluate_with_powers(fr: Field, coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Mirrors the reference's evaluation_domain, with the precomputed root tables
 as tensors on the domain's device: one power table of the domain root
 (k < n/2) serves every FFT stage as a strided slice. Tables are built
-lazily by one log-depth scan each and cached on the instance.
+lazily by one prefix-product scan each (``Field.prefix_product``) and
+cached on the instance.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import torch
 from ..config import resolve_device
 from ..fields import fr as _fr
 from ..kernels.butterfly import bit_reverse_indices
-from ..utils.scans import hillis_scan
 
 
 class EvaluationDomain:
@@ -44,7 +44,7 @@ class EvaluationDomain:
         xs = torch.cat(
             [fr.encode([1]), fr.encode([base_value]).expand(18, n - 1)], dim=1
         )
-        return hillis_scan(fr.mont_mul, xs, dim=1)
+        return fr.prefix_product(xs, dim=1)
 
     @functools.cached_property
     def twiddles(self) -> torch.Tensor:

@@ -1,10 +1,10 @@
-"""Log-depth inclusive scans as Python loops over the levels.
+"""Log-depth inclusive scans as Python loops over the levels: the plain
+version of K1's ``scan`` (``kernels/field_kernels.py``), which the field's
+``prefix_product`` and ``affine_scan`` run on a CPU tensor.
 
 Hillis-Steele formulation: level i combines every element with the one 2^i
-places before it (after it, for a suffix scan). Each level is one call of
-the combiner over the whole array, i.e. one kernel launch per field op on
-the card; n*log(n) work instead of 2n, which does not matter while every
-caller is bound by memory traffic and launches.
+places before it (after it, for a suffix scan), n*log(n) work instead of
+2n; each level is one call of the combiner over the whole array.
 """
 
 from __future__ import annotations

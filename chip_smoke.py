@@ -6,13 +6,16 @@
 builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
 process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
-element) - the MSM bucket kernels, the window combine and the lane-wise
+element) - K1 scan (prefix and suffix products and the affine recurrence,
+at ragged sizes, around its 1,024-element tiles and at every size the
+prove scans), the MSM bucket kernels, the window combine and the lane-wise
 point chains (K3d scalar_mul_bits at 16, 3 x 16, 3 x 2048 and 5 x 2048
 lanes, K3e fixed_base at 16 and 2^16 lanes) also on edge cases against the
 host oracle, the field power also against Python's pow, the precomputed
-table's kernels (K3f table_rows, K3a over the table's rows, K3b-wide
-bucket_reduce_wide with its default and forced small bucket ranges) at the
-table shapes of both proves and at c = 13, K3b-wide also on one-bucket sets
+table's kernels (K3f table_rows, K3a over the table's rows at block 128
+and at the block a commit call picks, K3b-wide bucket_reduce_wide with its
+default and forced small bucket ranges) at the table shapes of both proves
+and at c = 13, K3b-wide also on one-bucket sets
 and at the small shape on a sparse set against the host oracle, the main
 MSM through pippenger() and pippenger_precomputed(), and K4 glv_digits (the
 GLV split and signed digits) on edge scalars, also against the host oracle,
@@ -39,7 +42,9 @@ dbl or mixed_add, a K3d launch other than one per naive MSM, a K3e launch
 other than one per SRS generation, K4 / K3a / K3b-wide other than once per
 commitment call through the table, any per-round K3b, Horner combine,
 limb product of the eager GLV split on a CUDA tensor or (without naive
-MSMs) lane-wise add, or if the 2^16 windows run the
+MSMs) lane-wise add, K1 scan launches other than one per scan of the
+window, K1 mul launches above the window's ceiling, or if the 2^16 windows
+run the
 single-lane chains that K1 pow replaces or the K2 stage launches. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
@@ -88,7 +93,7 @@ from barretenberg_tpu_torch.msm import wnaf
 from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.plonk.prover import Prover
-from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
+from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft
 from barretenberg_tpu_torch.srs import test_srs
 from barretenberg_tpu_torch.transcript.keccak import keccak256
 from barretenberg_tpu_torch.utils import host_curve
@@ -127,6 +132,7 @@ REPLACES = {
     "table_rows": "barretenberg_tpu/kernels/point_kernels.py:179 (dbl) in the fori_loop of barretenberg_tpu/msm/pippenger.py:457-458",
     "bucket_reduce_wide": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82-104 and :107, over the one bucket set of :517",
     "glv_digits": "barretenberg_tpu/kernels/field_kernels.py:64 (to_plain, sub, mont_mul, add) with the limb products and windows of barretenberg_tpu/msm/wnaf.py:73-97, :136",
+    "field_scan": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in the fori_loops of barretenberg_tpu/utils/scans.py:19-62 (hillis_scan, affine_scan)",
 }
 # K4's 32-bit multiply-adds per scalar: its four limb products at the
 # widths it is compiled with (9 x 3, 9 x 5, 3 x 5 and 5 x 3 wide multiplies
@@ -324,6 +330,86 @@ def check_field_kernels(device, lanes_check: int, lanes_time: int, rng, records:
         })
 
 
+def rand_lanes(shape: tuple, device, rng) -> torch.Tensor:
+    """Seeded field elements below 2^253 (canonical in Fr and Fq) as (18,
+    *shape) limbs, drawn on the device."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
+    t = torch.randint(0, 1 << 15, (18, *shape), generator=gen, device=device, dtype=torch.int32)
+    t[16] &= (1 << 13) - 1
+    t[17] = 0
+    return t
+
+
+def scan_bound(n: int, affine: bool):
+    """K1 scan's bound over n lanes: each input and the output once (72
+    bytes an element; the affine recurrence's m is one broadcast element),
+    and the n - 1 products of 342 multiply-adds that the function needs in
+    either mode (the affine recurrence's n - 1 additions count no
+    multiply-adds, as K1 add's bound counts none)."""
+    nbytes = ELEM_BYTES * (2 * n + affine)
+    return bound(nbytes, max(n - 1, 0) * IMAD_PER_FIELD_MUL)
+
+
+def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list) -> None:
+    """K1 scan against its plain version (the Hillis-Steele loops) over Fr
+    and Fq at each of `sizes` lanes: the prefix and suffix products of
+    random lanes with a zero in the middle, the affine recurrence with a
+    broadcast and with a full m, a 4-D batch scanned along a middle dim and
+    strided views; Fr's batch inversion also against Python's pow.
+    Timed over Fr at `time_sizes` (the first is the record's shape)."""
+    for params, get in ((FR_PARAMS, get_fr), (FQ_PARAMS, get_fq)):
+        field = get(device)
+        for n in sizes:
+            a = rand_lanes((n,), device, rng)
+            if n > 2:
+                a[:, n // 2] = 0
+            for rev in (False, True):
+                for x in (a, a[:, ::2]):
+                    got = field.prefix_product(x, 1, rev)
+                    if not torch.equal(got, field_kernels.plain_prefix_product(params, x, 1, rev)):
+                        fail("kernels", f"field scan (product, reverse={rev}) over {params.name} at {x.shape[1]} lanes disagrees with its plain version")
+            b = rand_lanes((n,), device, rng)
+            for m in (rand_lanes((1,), device, rng), rand_lanes((n,), device, rng)):
+                got = field.affine_scan(m, b, 1)
+                want = field_kernels.plain_affine_scan(params, *torch.broadcast_tensors(m, b), 1)
+                if not torch.equal(got, want):
+                    fail("kernels", f"field scan (affine, m of {m.shape[1]} lanes) over {params.name} at {n} lanes disagrees with its plain version")
+        rows = rand_lanes((5, 3, 7), device, rng)  # (18, 5, 3, 7) scanned along dim 2: 35 rows of 3
+        for rev in (False, True):
+            if not torch.equal(field.prefix_product(rows, 2, rev),
+                               field_kernels.plain_prefix_product(params, rows, 2, rev)):
+                fail("kernels", f"field scan over {params.name} along a middle dim disagrees with its plain version")
+    fr = get_fr(device)
+    vals = rand_values(256, fr.p, rng)
+    if fr.decode(fr.batch_invert(fr.encode(vals))) != [pow(v, -1, fr.p) for v in vals]:
+        fail("kernels", "batch_invert through the field scan disagrees with Python's pow")
+
+    for affine in (False, True):
+        by_n = {}
+        for n in time_sizes:
+            b = rand_lanes((n,), device, rng)
+            m = rand_lanes((1,), device, rng)
+            if affine:
+                run, plain = (lambda: fr.affine_scan(m, b, 1)), (
+                    lambda: field_kernels.plain_affine_scan(FR_PARAMS, *torch.broadcast_tensors(m, b), 1))
+            else:
+                run, plain = (lambda: fr.prefix_product(b, 1)), (
+                    lambda: field_kernels.plain_prefix_product(FR_PARAMS, b, 1))
+            b_ms, b_by = scan_bound(n, affine)
+            by_n[n] = {"max_abs_err": max_abs_err([run()], [plain()]), "ms": time_ms(run, device, 20),
+                       "plain_ms": time_ms(plain, device, 2), "bound_ms": b_ms, "bound_by": b_by}
+        main = by_n[time_sizes[0]]
+        records.append({
+            "name": "field_scan_affine" if affine else "field_scan", "module": "field", "op": "scan",
+            "route": "cuda", "source": "barretenberg_tpu_torch/csrc/field_kernels.cu",
+            "replaces": REPLACES["field_scan"], "shape": [18, time_sizes[0]],
+            "mode": "affine recurrence, broadcast m" if affine else "prefix product",
+            "max_abs_err": max(v["max_abs_err"] for v in by_n.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+            "by_lanes": by_n,
+        })
+
+
 def pow_steps(exponent: int) -> int:
     """Montgomery products in K1 pow's chain: one squaring per bit after the
     first, one multiplication per set bit after the first."""
@@ -386,9 +472,10 @@ def check_butterfly(device, log2n_check: int, log2n_time: int, rng, records: lis
                 got = butterfly.butterfly_stage(FR_PARAMS, x5, tw)
                 if not torch.equal(got, butterfly.plain(FR_PARAMS, x5, tw)):
                     fail("kernels", f"butterfly stage h={h} nb={nb} disagrees with its plain version")
-    # timing: the mean over all stages of one 4n = 2^18 transform
+    # timing: the mean over all stages of one 4n = 2^18 transform, in a
+    # fresh domain (so the prove still builds and counts its own tables)
     n = 1 << log2n_time
-    domain = get_domain(n, device)
+    domain = EvaluationDomain(n, device)
     x = field.random_elements(n, rng)
     table = domain.twiddles
 
@@ -878,15 +965,19 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
     points with each window of ``wide_c``: K3f table_rows against its plain
     version; K3a (through the table's rows) and K3b-wide over the prove's
     widest batch, three bucket sets, against their plain versions, K3b-wide
-    also with one and three buckets per cluster; at the small shape
+    also with one and three buckets per cluster; K3a and K3b-wide also at
+    the block of each commit call the prover makes (COMMIT_SETS sets, the
+    block accumulate_block picks) at the two prove shapes; at the small shape
     one-bucket and sparse sets also against the host oracle, at the others
     a one-bucket set of every entry against the plain version; the main MSM
     through pippenger() and pippenger_precomputed() on the same scalars. All
     exact."""
     fr = get_fr(device)
     runs = {}
+    capacity = msm_kernels.accumulate_capacity(device)
     for k, c in ((log2n_small, None), (log2n, None), *((log2n, w) for w in wide_c)):
         n = 1 << k
+        prove_shape = c is None
         c = c or optimal_window(n)
         rounds, nb = msm_kernels.digit_rounds(c), 1 << (c - 1)
         pts = get_g1(device).batch_normalize(fixed_base_mul(rand_values(n, FR_MODULUS, rng), device))
@@ -899,9 +990,9 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
         table = generate_pippenger_point_table(pts, c)
         rows = table.entries(MSM_BLOCK)
         m = rows.shape[0]
-        scalars = [chain_scalars(n, rng) for _ in range(3)]
+        scalars = [chain_scalars(n, rng) for _ in range(max(COMMIT_SETS) if prove_shape else 3)]
         enc = [fr.encode(v) for v in scalars]
-        entries = msm_kernels.sort_rounds(precomputed_digits(enc, c, m), nb)
+        entries = msm_kernels.sort_rounds(precomputed_digits(enc[:3], c, m), nb)
         partials = msm_kernels.bucket_accumulate_rows(entries, rows, nb, MSM_BLOCK)
         want_p = msm_kernels.plain_bucket_accumulate(entries, *point_kernels.row_points(rows), nb, MSM_BLOCK)
         if not (torch.equal(partials.bucket, want_p.bucket) and same(partials.points, want_p.points)):
@@ -911,6 +1002,20 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
         for rb in (None, 1, 3):
             got_w = msm_kernels.bucket_reduce_wide(partials, nb, rb)
             rw_err = max(rw_err, max_abs_err(got_w[:3], want_w[:3]), int(got_w.inf.ne(want_w.inf).any()))
+        # the block a commit call of s sets walks (K3a's default,
+        # accumulate_block), K3a and K3b-wide at it, both exact: for each s
+        # the prover uses at the prove shapes, for three sets at the others
+        for s in COMMIT_SETS if prove_shape else (3,):
+            ents = entries if s == 3 else msm_kernels.sort_rounds(precomputed_digits(enc[:s], c, m), nb)
+            blk = msm_kernels.accumulate_block(ents.order.numel(), capacity)
+            got_p = msm_kernels.bucket_accumulate_rows(ents, rows, nb, blk)
+            want_c = msm_kernels.plain_bucket_accumulate(ents, *point_kernels.row_points(rows), nb, blk)
+            if not (torch.equal(got_p.bucket, want_c.bucket) and same(got_p.points, want_c.points)):
+                fail("kernels", f"bucket_accumulate at block {blk} ({s} sets) disagrees with its plain version at {n} points")
+            got_w, want_w = msm_kernels.bucket_reduce_wide(got_p, nb), msm_kernels.plain_bucket_reduce_wide(got_p, nb)
+            rw_err = max(rw_err, max_abs_err(got_w[:3], want_w[:3]), int(got_w.inf.ne(want_w.inf).any()))
+            if s == 3:  # the three-set call's block, timed against 128 in block_turns
+                chosen, partials_c = blk, got_p
         if rw_err:
             fail("kernels", f"bucket_reduce_wide disagrees with its plain version at {n} points")
         if k == log2n and c == optimal_window(n) and (
@@ -927,6 +1032,7 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
                 fail("kernels", f"bucket_reduce_wide disagrees with its plain version on a one-bucket set (c = {c})")
         runs[(k, c)] = dict(
             pts=pts, rounds=rounds, c=c, nb=nb, rows=rows, entries=entries, partials=partials,
+            chosen=chosen, partials_chosen=partials_c,
             heavy=heavy if k == log2n else None, tr_err=tr_err, tr_plain_ms=tr_plain_ms,
             rw_err=rw_err, rw_plain_ms=rw_plain_ms)
 
@@ -977,6 +1083,10 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
         sets * m * 4 + m * 4 * ROW_WORDS + sets * partials.bucket.shape[1] * (JAC_BYTES + 4),
         accumulate_madds(entries, point_kernels.row_points(rows).inf, nb, MSM_BLOCK)
         * POINT_MULS["mixed_add"] * IMAD_PER_FIELD_MUL)
+    # K3a + K3b-wide per commit call of three sets at block 128 and at the
+    # chosen block, in turns (128, chosen, chosen, 128), at both table shapes
+    for prefix, run in (("table", r), ("small_table", rs)):
+        acc[f"{prefix}_turns"] = block_turns(run, device)
     sets, k = partials.bucket.shape
     one = msm_kernels.Partials(partials.bucket[:1].contiguous(),
                                JacobianPoints(*(t[..., :k].contiguous() for t in partials.points)))
@@ -1004,6 +1114,34 @@ def check_precomputed(device, log2n_small: int, log2n: int, wide_c: tuple, rng, 
             wide_adds(run["partials"].bucket, run["nb"]) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)[0]
            for name, run in other.items()},
     })
+
+
+def block_turns(run: dict, device) -> dict:
+    """K3a's and K3b-wide's ms per call over one run's three sets at block
+    128 and at the chosen block, timed in turns (the faster of each block's
+    two readings), and K3a's bound at each."""
+    entries, rows, nb = run["entries"], run["rows"], run["nb"]
+    parts = {MSM_BLOCK: run["partials"], run["chosen"]: run["partials_chosen"]}
+    reads: dict = {}
+    for blk in (MSM_BLOCK, run["chosen"], run["chosen"], MSM_BLOCK):
+        a = time_ms(lambda: msm_kernels.bucket_accumulate_rows(entries, rows, nb, blk), device, 10)
+        w = time_ms(lambda: msm_kernels.bucket_reduce_wide(parts[blk], nb), device, 10)
+        reads.setdefault(blk, []).append((a, w))
+    sets, m = entries.order.shape
+    pinf = point_kernels.row_points(rows).inf
+    out = {}
+    for blk, pairs in reads.items():
+        k = parts[blk].bucket.shape[1]
+        out[str(blk)] = {
+            "k3a_ms": min(a for a, _ in pairs), "wide_ms": min(w for _, w in pairs),
+            "k3a_bound_ms": bound(sets * m * 4 + m * 4 * ROW_WORDS + sets * k * (JAC_BYTES + 4),
+                                  accumulate_madds(entries, pinf, nb, blk) * POINT_MULS["mixed_add"]
+                                  * IMAD_PER_FIELD_MUL)[0],
+            "partial_slots": k,
+        }
+        out[str(blk)]["sum_ms"] = out[str(blk)]["k3a_ms"] + out[str(blk)]["wide_ms"]
+    out["chosen_block"] = run["chosen"]
+    return out
 
 
 def glv_edge_scalars(n: int, rng) -> list:
@@ -1084,6 +1222,9 @@ WINDOWS = ("golden", "small", "srs", "prove")  # the counted windows, in the ord
 # precomputed table, one K3a and one K3b-wide launch, after one K3f launch
 # that builds the table.
 COMMIT_CALLS = 6
+# Their bucket sets per call: Z; the opening; sigmas, wires and quotient;
+# the five selectors.
+COMMIT_SETS = (1, 2, 3, 5)
 # Lane-wise point kernels that run on no main path since K3d and K3e, K2's
 # stage kernel, off the path since K2b, and the rounds-batched Pippenger's
 # per-round K3b and Horner combine K3c, off the prover's path since it
@@ -1091,6 +1232,16 @@ COMMIT_CALLS = 6
 # against its plain version).
 OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"),
             ("msm", "bucket_reduce"), ("msm", "window_combine")}
+# K1 scan launches per window, one per scan the window runs: two per batch
+# inversion (each batch normalisation of SRS generation, of the precomputed
+# table and of the six commit calls' results; the grand product's
+# denominators; the Lagrange denominators), the grand product's two
+# products, the powers tables, the domains' power tables and the two Kate
+# divisions. And the most K1 mul launches each window may run (the counts
+# measured on the card, PERF.md): a scan run as Hillis-Steele levels again
+# would add one to two mul launches per level.
+WINDOW_SCANS = {"golden": 40, "small": 42, "srs": 2, "prove": 40}
+WINDOW_MUL_MAX = {"golden": 122, "small": 122, "srs": 5, "prove": 117}
 
 
 def reset_counts() -> None:
@@ -1121,7 +1272,7 @@ def add_counts(parts) -> dict:
 PROVE_TRANSFORMS = {0: 20, 1: 6, 2: 8}
 
 
-def window_faults(counts: dict, naive_calls: int, srs_generations: int, table_calls: int) -> list:
+def window_faults(window: str, counts: dict, naive_calls: int, srs_generations: int, table_calls: int) -> list:
     """What every counted window must show now that K3d, K3e and K3f carry
     the lane-wise chains and the prover commits through the precomputed
     table from 2^10 gates: no lane-wise point doubling or mixed add, one K3d
@@ -1129,15 +1280,20 @@ def window_faults(counts: dict, naive_calls: int, srs_generations: int, table_ca
     commitment call through the table one K4, one K3a and one K3b-wide
     launch (one K3f for the table), with no per-round K3b, no Horner
     combine, no limb product of the eager GLV split on the card and, where
-    no MSM is naive, no lane-wise add (the naive MSM's tree sums)."""
-    want = {("point", "dbl"): 0, ("point", "mixed_add"): 0,
+    no MSM is naive, no lane-wise add (the naive MSM's tree sums); one K1
+    scan per scan of the window, and no more K1 mul launches than its
+    ceiling (a scan's level chain would add 16 or more each)."""
+    want = {("field", "scan"): WINDOW_SCANS[window], ("point", "dbl"): 0, ("point", "mixed_add"): 0,
             ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations,
             ("point", "table_rows"): min(1, table_calls), ("msm", "bucket_accumulate"): table_calls,
             ("msm", "bucket_reduce_wide"): table_calls, ("msm", "glv_digits"): table_calls,
             ("msm", "bucket_reduce"): 0, ("msm", "window_combine"): 0, ("eager", "mul_full_const"): 0}
     if not naive_calls:
         want[("point", "add")] = 0
-    return [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
+    faults = [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
+    if counts["field"]["mul"] > WINDOW_MUL_MAX[window]:
+        faults.append(f"field.mul={counts['field']['mul']} (want at most {WINDOW_MUL_MAX[window]})")
+    return faults
 
 
 def chain_faults(counts: dict, log2n: int) -> list:
@@ -1207,6 +1363,16 @@ def main() -> int:
     wide = 512 if rehearsal else 4 << log2n
     check_field_kernels(device, lanes, wide, rng, records)
     check_field_pow(device, lanes, rng, records)
+    # K1 scan: ragged sizes and tile edges (1,024 elements a CTA), every
+    # size the prove scans (the batch normalisations of a commit call's 1-5
+    # results, the 2^11 and 2^16 tables' 16 x 2^11 and 13 x 2^16 points,
+    # the grand product, powers tables, Kate divisions and domain tables at
+    # n / 2 to 4n), timed at 2^16 and beside it
+    scan_sizes = (1, 2, 3, 5, 17, 64, 1023, 1024, 1025, 2048 + 7)
+    if not rehearsal:
+        scan_sizes += (1 << 11, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 16 << 11, 13 << 16)
+    check_field_scan(device, scan_sizes, (64, 1025) if rehearsal else
+                     (1 << log2n, 3, 1 << 11, 1 << (log2n + 1), 1 << (log2n + 2), 13 << log2n), rng, records)
     check_butterfly(device, 8 if rehearsal else 16, 6 if rehearsal else log2n + 2, rng, records)
     check_fft_pass(device, (4, 6) if rehearsal else (4, 10),
                    (6, 7, 8) if rehearsal else (log2n, log2n + 1, log2n + 2), (4, 1), rng, records)
@@ -1241,7 +1407,7 @@ def main() -> int:
     digest = keccak256(blob).hex()
     if len(blob) != 800 or digest != GOLDEN_DIGEST or not accepted or tampered_accepted:
         fail("golden", f"bytes={len(blob)} digest={digest} accepted={accepted} tampered_accepted={tampered_accepted}")
-    faults = [] if rehearsal else window_faults(counts["golden"], COMMIT_CALLS, 1, 0)
+    faults = [] if rehearsal else window_faults("golden", counts["golden"], COMMIT_CALLS, 1, 0)
     if faults:
         fail("golden", f"launches over the n = 16 SRS generation + prove: {faults}")
     emit({"phase": "golden", "ok": True, "bytes": len(blob), "digest": digest})
@@ -1263,7 +1429,7 @@ def main() -> int:
     counts["small"], single["small"] = read_counts(), read_single_lane()
     if not accepted or tampered_accepted:
         fail("small_prove", f"n={small_n} accepted={accepted} tampered_accepted={tampered_accepted}")
-    faults = [] if rehearsal else window_faults(counts["small"], 0, 1, COMMIT_CALLS)
+    faults = [] if rehearsal else window_faults("small", counts["small"], 0, 1, COMMIT_CALLS)
     if faults:
         fail("small_prove", f"launches over the n = {small_n} SRS generation + prove: {faults}")
     emit({"phase": "small_prove", "ok": True, "n": small_n, "srs_seconds": small_srs_s,
@@ -1309,9 +1475,9 @@ def main() -> int:
                 if v == 0 and (mod, op) not in OFF_PATH]
         if idle:
             fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
-        faults = [f"srs: {f}" for f in window_faults(counts["srs"], 0, 1, 0)]
+        faults = [f"srs: {f}" for f in window_faults("srs", counts["srs"], 0, 1, 0)]
         if Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N:
-            faults += [f"prove: {f}" for f in window_faults(counts["prove"], 0, 0, COMMIT_CALLS)]
+            faults += [f"prove: {f}" for f in window_faults("prove", counts["prove"], 0, 0, COMMIT_CALLS)]
             faults += chain_faults(main_counts, log2n)
         if faults:
             fail("prove", f"launches over SRS generation + prove: {faults}")

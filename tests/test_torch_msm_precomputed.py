@@ -108,6 +108,35 @@ def test_precomputed_msm_matches_jax_and_host(data, jax_side):
     assert jacobian_to_host(got) == [host_curve.g1_msm(host_pts, scalars)]
 
 
+@pytest.mark.parametrize("block", [8, 16, 128, None])
+def test_precomputed_msm_at_any_block_matches_jax_and_host(data, jax_side, block):
+    """K3a's walk length changes the partials' grouping, not the MSM: at
+    blocks 8, 16 and 128, and at the block the call picks itself (None), the
+    precomputed MSM equals the JAX package's at its block 16 in affine
+    form, and the host oracle."""
+    host_pts, scalars, tscal, *_, table = data
+    want = jacobian_to_host(convert.jacobian_points(*(np.asarray(t) for t in jax_side[1]), device="cpu"))
+    got = jacobian_to_host(pippenger_precomputed(tscal, table, block=block))
+    assert got == want == [host_curve.g1_msm(host_pts, scalars)]
+
+
+def test_accumulate_block_choice():
+    """The block a call picks is one of 8, 16, 32, 64, 128, never grows as
+    the call's entry count falls, is 128 once the walks of 128 fill the
+    card and 8 when even walks of 8 do not; a CPU batch picks it for the
+    card's nominal capacity."""
+    for capacity in (1, 1000, msm_kernels.NOMINAL_CAPACITY, 1 << 20):
+        prev = 128
+        for entries in sorted({int(v) for v in np.geomspace(1, 1 << 30, 400)} | {capacity * b for b in (8, 64, 128)},
+                              reverse=True):
+            block = msm_kernels.accumulate_block(entries, capacity)
+            assert block in (8, 16, 32, 64, 128) and block <= prev
+            prev = block
+        assert msm_kernels.accumulate_block(128 * capacity, capacity) == 128
+        assert msm_kernels.accumulate_block(8 * capacity - 1, capacity) == 8
+    assert msm_kernels.accumulate_capacity(torch.device("cpu")) == msm_kernels.NOMINAL_CAPACITY
+
+
 def test_table_rows_plain_is_the_dbl_loop(data):
     """K3f's plain version against c lane-wise doublings per row, and its
     rows against the host group law."""

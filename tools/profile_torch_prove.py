@@ -8,14 +8,15 @@ fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
 one untraced warm-up prove, and prints one JSON line: wall seconds, summed
 device seconds of all kernels, the device's busy share of the wall, the
 number of device operations (kernels and copies) the prove ran, its
-``index_select`` calls (gathers), the top kernels by device time, and for
-each of the port's kernel wrappers its launches in the traced prove (from
-the wrappers' counters; single-lane launches apart) beside the profiler's
-calls and device time for the CUDA kernel it launches, so that launches x
-(device time per call - bound) can be read from one run. A second traced
-prove runs each prover phase (the methods `construct_proof` calls) inside a
-profiler range fenced by device synchronisations and gives, per phase, its
-wall seconds, device operations and device milliseconds (the sigma bases,
+``index_select`` calls (gathers), its ``torch.roll`` kernels, the top
+kernels by device time, and for each of the port's kernel wrappers its
+launches in the traced prove (from the wrappers' counters; single-lane
+launches apart) beside the profiler's calls and device time for the CUDA
+kernel it launches, so that launches x (device time per call - bound) can
+be read from one run. A second traced prove runs each prover phase (the
+methods `construct_proof` calls) inside a profiler range fenced by device
+synchronisations and gives, per phase, its wall seconds, device
+operations, ``roll`` kernels and device milliseconds (the sigma bases,
 computed inline, fall under "other"); the phase methods are looked up by
 name, so the tool also runs in a checkout of the port's parent commit.
 Needs one CUDA device.
@@ -46,7 +47,7 @@ COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernel
 KERNEL_NAMES = {
     "field.mul": "field_op_kernel<0>", "field.sqr": "field_op_kernel<1>",
     "field.add": "field_op_kernel<2>", "field.sub": "field_op_kernel<3>",
-    "field.pow": "field_pow_kernel", "butterfly.stage": "butterfly_stage_kernel",
+    "field.pow": "field_pow_kernel", "field.scan": "field_scan_kernel", "butterfly.stage": "butterfly_stage_kernel",
     "butterfly.pass": "fft_pass_kernel",
     "point.dbl": "point_dbl_kernel", "point.add": "point_add_kernel<false>",
     "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
@@ -74,6 +75,10 @@ def kernel_launches(rows) -> dict:
     return out
 
 
+# torch.roll's CUDA kernel, as the profiler names it (not a substring of
+# PyTorch's unrolled elementwise kernels).
+ROLL_KERNEL = "roll_cuda_kernel"
+
 # The prover phases construct_proof runs as methods, in order.
 PHASES = ("compute_wire_coefficients", "compute_wire_commitments", "compute_z_coefficients",
           "compute_z_commitment", "compute_quotient_polynomial", "compute_quotient_commitment",
@@ -96,13 +101,14 @@ def fence_phases(prover, device) -> None:
 
 def phase_breakdown(events) -> dict:
     """Per phase range: its wall seconds, the device operations (kernels and
-    copies) that started inside it, their device milliseconds, and the three
-    kernels that took most of them."""
+    copies) that started inside it, their device milliseconds, how many of
+    them were ``torch.roll``'s kernel, and the three kernels that took most
+    of them."""
     ranges = [(e.name[len("phase."):], e.time_range.start, e.time_range.end)
               for e in events if e.name.startswith("phase.") and e.device_type == DeviceType.CPU]
-    out = {name: {"wall_seconds": (t1 - t0) / 1e6, "device_ops": 0, "device_ms": 0.0, "by_kernel": {}}
-           for name, t0, t1 in ranges}
-    out["other"] = {"wall_seconds": None, "device_ops": 0, "device_ms": 0.0, "by_kernel": {}}
+    out = {name: {"wall_seconds": (t1 - t0) / 1e6, "device_ops": 0, "device_ms": 0.0, "roll_ops": 0,
+                  "by_kernel": {}} for name, t0, t1 in ranges}
+    out["other"] = {"wall_seconds": None, "device_ops": 0, "device_ms": 0.0, "roll_ops": 0, "by_kernel": {}}
     for e in events:
         # the phase ranges and device synchronisations show on the device's
         # timeline too; they are no device operations
@@ -113,6 +119,7 @@ def phase_breakdown(events) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         out[name]["device_ops"] += 1
         out[name]["device_ms"] += ms
+        out[name]["roll_ops"] += ROLL_KERNEL in e.name
         out[name]["by_kernel"][e.name[:40]] = out[name]["by_kernel"].get(e.name[:40], 0.0) + ms
     for phase in out.values():
         top = sorted(phase.pop("by_kernel").items(), key=lambda kv: -kv[1])[:3]
@@ -162,6 +169,7 @@ def main() -> int:
         "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
         "device_seconds": device_s, "device_busy_share": device_s / wall,
         "device_ops": sum(r[1] for r in rows),
+        "roll_ops": sum(r[1] for r in rows if ROLL_KERNEL in r[0]),
         "index_select_calls": sum(e.count for e in prof.key_averages() if e.key == "aten::index_select"),
         "top": [{"name": k[:60], "calls": c, "device_seconds": t / 1e6} for k, c, t in rows[: args.top]],
         "kernels": kernels,
