@@ -4,8 +4,10 @@
 // (limb stride, lane stride) so a broadcast (18, 1) operand (lane stride 0)
 // or a strided view needs no materialised copy. And scan: a whole inclusive
 // prefix (or suffix) product, or the affine recurrence d_i = m_i d_{i-1} +
-// b_i, along each row of an (18, rows, n) array in one launch. Plain C
-// interface for ctypes; see field.cuh.
+// b_i, along each row of an (18, rows, n) array in one launch. And dot (B
+// rows against one table, each multiplied lane by lane and summed, in one
+// launch) and lincomb (a linear combination of J arrays with host-known
+// scalars, in one launch). Plain C interface for ctypes; see field.cuh.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -393,6 +395,145 @@ extern "C" int bb_field_scan(int mode, int reverse, const void* a, long a_ls, lo
     }
 }
 
+// ---------------------------------------------------------------------------
+// dot
+// ---------------------------------------------------------------------------
+// out[:, r] = sum_i rows[r][:, i] * table[:, i] (Montgomery products, field
+// sum) for B rows of n lanes against one table: a batch of polynomial
+// evaluations against one power table. The grid is (CTAs per row, B): each
+// thread sums its grid-stride lanes of its CTA's row with one accumulator
+// in registers (B accumulators a thread held 130-168 registers and ran at
+// 3 CTAs an SM; the rows' CTAs re-read the table through L2 instead); the
+// warp folds its threads' sums by shuffles, warp 0 folds the warps' sums
+// from shared memory, and each CTA writes its partial to global scratch and
+// takes its row's ticket; the CTA that takes a row's last ticket folds that
+// row's partials the same way, writes the row's sum and resets the ticket
+// for the next launch on the stream. Field sums are exact and fe_add
+// canonical, so any grouping gives the plain tree's limbs bit for bit.
+#define DOT_THREADS 128
+#define DOT_WARPS (DOT_THREADS / 32)
+#define DOT_MAX_ROWS 8   // rows per launch: the wrapper splits a larger batch
+
+// The rows by value: row r's element i, limb k at p[r][k * ls[r] + i * ns[r]].
+struct DotRows {
+    const uint32_t* p[DOT_MAX_ROWS];
+    long ls[DOT_MAX_ROWS];
+    long ns[DOT_MAX_ROWS];
+};
+
+// Lane 0 of each warp ends with the sum of its first `width` lanes (a lane
+// reading past the warp's end gets its own value back, which lane 0 never
+// reads).
+__device__ __forceinline__ fe dot_shfl_sum(fe acc, int width, const FieldConst& fc) {
+#pragma unroll 1
+    for (int d = width / 2; d > 0; d >>= 1) {
+        fe o;
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) o.v[k] = __shfl_down_sync(0xffffffffu, acc.v[k], d);
+        acc = fe_add(acc, o, fc);
+    }
+    return acc;
+}
+
+// Thread 0's result is the sum of every thread's acc. sm: DOT_WARPS * 9
+// words, free on entry, read until the caller's next __syncthreads.
+__device__ __forceinline__ fe dot_cta_sum(fe acc, uint32_t* sm, const FieldConst& fc) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    acc = dot_shfl_sum(acc, 32, fc);
+    if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) sm[warp * FE_LIMBS + k] = acc.v[k];
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) acc.v[k] = lane < DOT_WARPS ? sm[lane * FE_LIMBS + k] : 0u;
+        acc = dot_shfl_sum(acc, DOT_WARPS, fc);
+    }
+    return acc;
+}
+
+// tickets: one per row, zero at launch and again at the end; partials:
+// gridDim.y * gridDim.x * 9 words.
+__global__ void __launch_bounds__(DOT_THREADS)
+field_dot_kernel(const __grid_constant__ DotRows rows, const uint32_t* __restrict__ t, long t_ls, long t_ns,
+                 uint32_t* __restrict__ out, long o_ls, long o_ns, long n,
+                 unsigned* tickets, uint32_t* partials, FieldConst fc) {
+    __shared__ uint32_t sm[DOT_WARPS * FE_LIMBS];
+    __shared__ bool last;
+    const int r = blockIdx.y;
+    const uint32_t* row = rows.p[r];
+    const long r_ls = rows.ls[r], r_ns = rows.ns[r];
+    fe acc = fe_zero();
+    const long step = (long)gridDim.x * DOT_THREADS;
+#pragma unroll 1
+    for (long i = (long)blockIdx.x * DOT_THREADS + threadIdx.x; i < n; i += step)
+        acc = fe_add(acc, fe_mul(fe_load(row + i * r_ns, r_ls), fe_load(t + i * t_ns, t_ls), fc), fc);
+    acc = dot_cta_sum(acc, sm, fc);
+    uint32_t* mine = partials + (long)r * gridDim.x * FE_LIMBS;
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) mine[(long)blockIdx.x * FE_LIMBS + k] = acc.v[k];
+        __threadfence();
+        last = atomicAdd(tickets + r, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    // the row's last CTA: every other CTA of the row has written and fenced its partial
+    __threadfence();
+    acc = fe_zero();
+#pragma unroll 1
+    for (int c = threadIdx.x; c < (int)gridDim.x; c += DOT_THREADS) {
+        fe v;
+#pragma unroll
+        for (int k = 0; k < FE_LIMBS; ++k) v.v[k] = __ldcg(mine + (long)c * FE_LIMBS + k);
+        acc = fe_add(acc, v, fc);
+    }
+    acc = dot_cta_sum(acc, sm, fc);
+    if (threadIdx.x == 0) {
+        fe_store(out + r * o_ns, o_ls, acc);
+        tickets[r] = 0u;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// lincomb
+// ---------------------------------------------------------------------------
+// out[:, i] = sum_j s_j * a_j[:, i] for J arrays of n lanes and host-known
+// scalars s_j (internal Montgomery form, so fe_mul gives value(a_j) s_j).
+// One thread per lane (grid-stride), the sum in registers; the terms
+// arrive by value and are read from the constant bank (__grid_constant__,
+// no per-thread copy), so each operand is read once and the result written
+// once, neighbouring threads on neighbouring addresses of each limb row.
+#define LINCOMB_THREADS 256
+#define LINCOMB_MAX_TERMS 12  // terms per launch: the wrapper splits a longer list
+
+struct LincombTerms {
+    const uint32_t* p[LINCOMB_MAX_TERMS];
+    long ls[LINCOMB_MAX_TERMS];
+    long ns[LINCOMB_MAX_TERMS];
+    uint32_t s[LINCOMB_MAX_TERMS][FE_LIMBS];
+    int count;
+};
+
+__global__ void __launch_bounds__(LINCOMB_THREADS)
+field_lincomb_kernel(const __grid_constant__ LincombTerms terms, uint32_t* __restrict__ out, long n,
+                     FieldConst fc) {
+    const long step = (long)gridDim.x * LINCOMB_THREADS;
+#pragma unroll 1
+    for (long i = (long)blockIdx.x * LINCOMB_THREADS + threadIdx.x; i < n; i += step) {
+        fe acc = fe_zero();
+#pragma unroll 1
+        for (int j = 0; j < terms.count; ++j) {
+            fe s;
+#pragma unroll
+            for (int k = 0; k < FE_LIMBS; ++k) s.v[k] = terms.s[j][k];
+            acc = fe_add(acc, fe_mul(fe_load(terms.p[j] + i * terms.ns[j], terms.ls[j]), s, fc), fc);
+        }
+        fe_store(out + i, n, acc);
+    }
+}
+
 // consts: 19 words = p[9], one[9], ninv (30-bit limbs), host memory.
 extern "C" int bb_field_op(int op, const void* a, long a_ls, long a_ns,
                            const void* b, long b_ls, long b_ns,
@@ -429,5 +570,69 @@ extern "C" int bb_field_pow(const void* a, long a_ls, long a_ns, void* out, long
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
     field_pow_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, a_ls, a_ns, (uint32_t*)out, n, e, field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+// rows: DOT_MAX_ROWS at most; row_args: 3 longs per row in host memory -
+// base address, limb stride, lane stride; out: element r at out + r * o_ns,
+// limb stride o_ls; ctas: CTAs per row (at least one); scratch:
+// scratch_words words, DOT_MAX_ROWS tickets (zero), then rows * ctas * 9
+// words of partials.
+extern "C" int bb_field_dot(int rows, const long* row_args, const void* table, long t_ls, long t_ns,
+                            void* out, long o_ls, long o_ns, long n, int ctas, void* scratch,
+                            long scratch_words, const uint32_t* consts, void* stream) {
+    if (n <= 0 || rows <= 0) return 0;
+    if (rows > DOT_MAX_ROWS || ctas < 1 || scratch_words < DOT_MAX_ROWS + (long)rows * ctas * FE_LIMBS)
+        return (int)cudaErrorInvalidValue;
+    DotRows r;
+    for (int k = 0; k < rows; ++k) {
+        r.p[k] = (const uint32_t*)row_args[3 * k];
+        r.ls[k] = row_args[3 * k + 1];
+        r.ns[k] = row_args[3 * k + 2];
+    }
+    field_dot_kernel<<<dim3(ctas, rows), DOT_THREADS, 0, (cudaStream_t)stream>>>(
+        r, (const uint32_t*)table, t_ls, t_ns, (uint32_t*)out, o_ls, o_ns, n, (unsigned*)scratch,
+        (uint32_t*)scratch + DOT_MAX_ROWS, field_const_from_host(consts));
+    return (int)cudaGetLastError();
+}
+
+// The CTAs of field_dot_kernel resident on the current device at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), into *out.
+extern "C" int bb_field_dot_ctas(void* out) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, field_dot_kernel, DOT_THREADS, 0);
+    *(int*)out = sms * per_sm;
+    return (int)err;
+}
+
+// terms: LINCOMB_MAX_TERMS at most; term_args: 3 longs per term in host
+// memory - base address, limb stride, lane stride; scalars: 32 bytes per
+// term, host memory, the scalar's internal Montgomery form (value R' mod
+// p) as a little-endian integer; out: (18, n) contiguous.
+extern "C" int bb_field_lincomb(int count, const long* term_args, const uint8_t* scalars, void* out,
+                                long n, const uint32_t* consts, void* stream) {
+    if (n <= 0) return 0;
+    if (count < 1 || count > LINCOMB_MAX_TERMS) return (int)cudaErrorInvalidValue;
+    LincombTerms t;
+    for (int j = 0; j < count; ++j) {
+        t.p[j] = (const uint32_t*)term_args[3 * j];
+        t.ls[j] = term_args[3 * j + 1];
+        t.ns[j] = term_args[3 * j + 2];
+        uint64_t w[5] = {0, 0, 0, 0, 0};
+        for (int b = 0; b < 32; ++b) w[b / 8] |= (uint64_t)scalars[32 * j + b] << (8 * (b % 8));
+        for (int k = 0; k < FE_LIMBS; ++k) {  // bits [30k, 30k + 30)
+            const int bit = 30 * k, word = bit / 64, off = bit % 64;
+            uint64_t v = w[word] >> off;
+            if (off > 34) v |= w[word + 1] << (64 - off);
+            t.s[j][k] = (uint32_t)v & FE_MASK;
+        }
+    }
+    t.count = count;
+    const long blocks = (n + LINCOMB_THREADS - 1) / LINCOMB_THREADS;
+    field_lincomb_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), LINCOMB_THREADS, 0, (cudaStream_t)stream>>>(
+        t, (uint32_t*)out, n, field_const_from_host(consts));
     return (int)cudaGetLastError();
 }

@@ -10,8 +10,9 @@ converts between them homomorphically (params.py).
 
 A ``Field`` holds its constant tensors on one explicit device. Arithmetic
 goes through the ops of kernels/field_kernels.py - ``mul``, ``sqr``,
-``add``, ``sub``, ``pow`` and ``scan`` - which launch the CUDA kernel for a
-CUDA tensor and run the plain PyTorch version for a CPU tensor; ``neg``,
+``add``, ``sub``, ``pow``, ``scan``, ``dot`` and ``lincomb`` - which launch
+the CUDA kernel for a CUDA tensor and run the plain PyTorch version for a
+CPU tensor; ``neg``,
 ``double``, ``mul_by_constant``, every broadcast product and the scans
 (``prefix_product``, ``affine_scan``) are expressed through those, so no
 field arithmetic on the card runs as a chain of eager limb ops.
@@ -123,6 +124,18 @@ class Field:
     def mul_by_constant(self, a, value: int):
         """Multiply by a field *value* (host int) via one broadcast mont_mul."""
         return self.mont_mul(a, self._col_for(self.const(value), a))
+
+    def dot(self, rows, table):
+        """(18, B): each of B (18, n) rows times the (18, n) `table` lane by
+        lane, summed - a batch of evaluations against one power table, one
+        launch of K1's ``dot`` per ``DOT_MAX_ROWS`` rows on the card."""
+        return field_kernels.dot(self.params, rows, table)
+
+    def linear_combination(self, polys, scalars):
+        """(18, n): sum_j scalars[j] polys[j] for host-int field values - one
+        launch of K1's ``lincomb`` per ``LINCOMB_MAX_TERMS`` terms on the
+        card."""
+        return field_kernels.linear_combination(self.params, polys, scalars)
 
     # ------------------------------------------------------------------
     # Montgomery form conversion (external R = 2^256 semantics)

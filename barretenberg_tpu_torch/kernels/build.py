@@ -11,6 +11,7 @@ that carries on without the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -114,6 +115,9 @@ _SIGNATURES = {
         "bb_field_op": [_I, _VP, _L, _L, _VP, _L, _L, _VP, _L, _VP, _VP],
         "bb_field_pow": [_VP, _L, _L, _VP, _L, _VP, _I, _VP, _VP],
         "bb_field_scan": [_I, _I, _VP, _L, _L, _L, _VP, _L, _L, _L, _VP, _I, _L, _VP, _L, _VP, _VP],
+        "bb_field_dot": [_I, _VP, _VP, _L, _L, _VP, _L, _L, _L, _I, _VP, _L, _VP, _VP],
+        "bb_field_dot_ctas": [_VP],
+        "bb_field_lincomb": [_I, _VP, ctypes.c_char_p, _VP, _L, _VP, _VP],
     },
     "butterfly": {
         "bb_butterfly_stage": [_VP, _VP, _L, _L, _VP, _L, _L, _L, _VP, _VP],
@@ -182,12 +186,12 @@ def _limbs30(value: int) -> list:
 
 def _host_words(key: str, words):
     """The host address of the uint32 array of ``words()``, made once per
-    key and kept alive by the cache."""
-    arr = _const_cache.get(key)
-    if arr is None:
+    key and kept alive (with its address) by the cache."""
+    hit = _const_cache.get(key)
+    if hit is None:
         arr = np.ascontiguousarray(np.array(words(), dtype=np.uint32))
-        _const_cache[key] = arr
-    return arr.ctypes.data
+        hit = _const_cache[key] = (arr, arr.ctypes.data)
+    return hit[1]
 
 
 def field_consts(params: FieldParams):
@@ -218,3 +222,20 @@ def check(err: int, what: str) -> None:
 
 def current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context in which `t`'s card is the current device for a launch: no
+    switch (and no switch back) when it already is."""
+    idx = t.get_device()
+    return _SAME_DEVICE if idx == torch.cuda.current_device() else torch.cuda.device(idx)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on `t`'s card (what
+    ``current_stream`` gives when that card is current, without building a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

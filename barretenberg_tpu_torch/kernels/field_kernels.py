@@ -48,19 +48,45 @@ has it; warp 0 folds up to 32 earlier tiles per step). Field products and
 sums are exact and canonical, so any grouping gives the plain version's
 limbs bit for bit, ``batch_invert``'s values at zero entries included.
 
+``dot`` replaces the ``mont_mul`` and the ``add`` levels of ``_mul_fn`` in
+the JAX package's evaluations (``plonk/prover.py:259-271``
+``_multi_eval_jit``; ``polynomials/arithmetic.py:19-28``, ``:55-58``,
+``:69-71`` ``_tree_sum``, ``_evaluate_jit``, ``evaluate_device``): B rows
+of n lanes multiplied lane by lane with one power table and summed, an
+(18, B) result. The port ran each as one K1 ``mul`` and a tree of K1
+``add`` launches, one per halving level (16-18 at the prove's sizes).
+What bounds it on the card: bytes (72 per element of each row and of the
+table, read once). What the design does about it: one launch per batch
+of up to ``DOT_MAX_ROWS`` rows, a grid of CTAs per row x rows; each
+thread keeps one sum in registers (the rows' CTAs re-read the table
+through L2: B sums a thread took 130-168 registers and a third of the
+card's warps), warps fold by shuffles, CTAs through shared memory, and
+each row's CTA that finishes last folds the row's partials (global
+scratch, a fence and an atomic ticket per row) in the same launch; all
+rows' CTAs together fill the card once (the occupancy query).
+
+``lincomb`` replaces ``_linear_combo_jit`` (``plonk/prover.py:274-282``):
+sum_j s_j a_j for host-known scalars, which the port ran as one scalar
+copy, one K1 ``mul`` and one K1 ``add`` per term. Bound by bytes (each
+operand read once, the result written once); one thread per lane keeps
+the sum in registers, and the scalars and operand addresses arrive by
+value, up to ``LINCOMB_MAX_TERMS`` terms a launch.
+
 A CUDA tensor always launches the kernel (or raises); a CPU tensor always
 takes the plain version (``limb_ops.LimbField``; for ``scan``, the
-Hillis-Steele loops of ``utils/scans.py``).
+Hillis-Steele loops of ``utils/scans.py``; for ``dot``, a product and a
+tree of sums; for ``lincomb``, a product and a sum per term).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from ..fields.params import NUM_LIMBS, FieldParams
+from ..fields.params import NUM_LIMBS, R_INTERNAL, FieldParams
 from ..utils import scans
 from . import build
 from .limb_ops import LimbField
@@ -71,10 +97,13 @@ EXP_WORDS = 8  # csrc/field_kernels.cu: pow takes exponents of up to 256 bits
 SCAN_TILE = 1024  # csrc/field_kernels.cu SCAN_TILE: elements per CTA of scan
 SCAN_WORDS_PER_TILE = 1 + 4 * 9  # a tile's flag, total and inclusive prefix
 _SCAN_MODES = {"prod": 0, "affine": 1}
+DOT_THREADS = 128  # csrc/field_kernels.cu: threads per CTA of dot
+DOT_MAX_ROWS = 8  # csrc/field_kernels.cu: rows per launch of dot
+LINCOMB_MAX_TERMS = 12  # csrc/field_kernels.cu: terms per launch of lincomb
 
 # Kernel launches per op since the counters were last reset (reset_counts),
 # and how many of them ran one lane.
-launch_counts = {op: 0 for op in (*_OPS, "pow", "scan")}
+launch_counts = {op: 0 for op in (*_OPS, "pow", "scan", "dot", "lincomb")}
 single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
@@ -134,34 +163,60 @@ def plain_affine_scan(params: FieldParams, m, b, dim: int):
     return scans.affine_scan(lf.mont_mul, lf.add, m, b, dim)
 
 
+def plain_dot(params: FieldParams, rows, table):
+    """The plain PyTorch version of ``dot`` (any device): each row times the
+    table, lane by lane, then summed by halving levels -> (18, B)."""
+    lf = limb_field(params)
+    x = lf.mont_mul(torch.stack(list(rows), dim=1), table.unsqueeze(1))
+    n = x.shape[-1]
+    while n > 1:
+        half = n // 2
+        s = lf.add(x[..., :half], x[..., half : 2 * half])
+        x = torch.cat([s, x[..., 2 * half :]], dim=-1) if n % 2 else s
+        n = x.shape[-1]
+    return x[..., 0]
+
+
+def plain_linear_combination(params: FieldParams, polys, scalars):
+    """The plain PyTorch version of ``lincomb`` (any device): one product by
+    each term's scalar and one sum per term after the first."""
+    lf = limb_field(params)
+    acc = None
+    for poly, s in zip(polys, scalars):
+        t = lf.mont_mul(poly, lf.const_rows(s, poly[:, :1]))
+        acc = t if acc is None else lf.add(acc, t)
+    return acc
+
+
 def _launch(params: FieldParams, op: str, a, b):
     if b is None:
         b = a
-    if a.shape != b.shape:
-        a, b = torch.broadcast_tensors(a, b)
-    shape = a.shape
-    if a.ndim != 2:
+    shape = None
+    if a.ndim != 2 or b.ndim != 2:
+        if a.shape != b.shape:
+            a, b = torch.broadcast_tensors(a, b)
+        shape = a.shape
         a, b = a.reshape(L, -1), b.reshape(L, -1)
+    # (18, n) against (18, 1): the column is read with lane stride 0
+    n = max(a.shape[1], b.shape[1])
     for t in (a, b):
-        if t.dtype != torch.int32 or not t.is_cuda or t.shape[0] != L:
+        if t.dtype != torch.int32 or not t.is_cuda or t.shape[0] != L or t.shape[1] not in (1, n):
             raise ValueError(
                 f"field kernel takes (18, n) int32 CUDA tensors, got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
     if b.device != a.device:
         raise ValueError("field kernel operands lie on different devices")
-    n = a.shape[1]
-    out = torch.empty((L, n), dtype=torch.int32, device=a.device)
-    lib = build.get_lib("field_kernels")
-    with torch.cuda.device(a.device):
-        err = lib.bb_field_op(
+    out = a.new_empty((L, n))
+    with build.on_device(a):
+        err = build.get_lib("field_kernels").bb_field_op(
             _OPS[op],
-            a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1),
-            out.data_ptr(), n, build.field_consts(params), build.current_stream(),
+            a.data_ptr(), a.stride(0), a.stride(1) if a.shape[1] == n else 0,
+            b.data_ptr(), b.stride(0), b.stride(1) if b.shape[1] == n else 0,
+            out.data_ptr(), n, build.field_consts(params), build.stream_of(a),
         )
     build.check(err, f"field_op[{op}]")
     _count(op, n)
-    return out.reshape(shape)
+    return out if shape is None else out.reshape(shape)
 
 
 def _launch_pow(params: FieldParams, a, exponent: int):
@@ -174,16 +229,15 @@ def _launch_pow(params: FieldParams, a, exponent: int):
         raise ValueError(f"pow kernel takes an (18, n) int32 CUDA tensor, got {tuple(a.shape)} {a.dtype} on {a.device}")
     n = a.shape[1]
     words = np.array([(exponent >> (32 * k)) & 0xFFFFFFFF for k in range(EXP_WORDS)], dtype=np.uint32)
-    out = torch.empty((L, n), dtype=torch.int32, device=a.device)
-    lib = build.get_lib("field_kernels")
-    with torch.cuda.device(a.device):
-        err = lib.bb_field_pow(
+    out = a.new_empty((L, n))
+    with build.on_device(a):
+        err = build.get_lib("field_kernels").bb_field_pow(
             a.data_ptr(), a.stride(0), a.stride(1), out.data_ptr(), n,
-            words.ctypes.data, exponent.bit_length(), build.field_consts(params), build.current_stream(),
+            words.ctypes.data, exponent.bit_length(), build.field_consts(params), build.stream_of(a),
         )
     build.check(err, "field_pow")
     _count("pow", n)
-    return out.reshape(shape)
+    return out if len(shape) == 2 else out.reshape(shape)
 
 
 def _scan_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -205,20 +259,112 @@ def _launch_scan(params: FieldParams, mode: str, a, b, dim: int, reverse: bool):
     if b3.device != a3.device or b3.shape != a3.shape:
         raise ValueError("scan kernel operands differ in device or shape")
     _, rows, n = a3.shape
-    out = torch.empty((L, rows, n), dtype=torch.int32, device=a.device)
+    out = a3.new_empty((L, rows, n))
     words = 1 + rows * -(-n // SCAN_TILE) * SCAN_WORDS_PER_TILE
-    state = torch.empty(words, dtype=torch.int32, device=a.device)
-    lib = build.get_lib("field_kernels")
-    with torch.cuda.device(a.device):
-        err = lib.bb_field_scan(
+    state = a3.new_empty(words)
+    with build.on_device(a3):
+        err = build.get_lib("field_kernels").bb_field_scan(
             _SCAN_MODES[mode], int(reverse),
             a3.data_ptr(), a3.stride(0), a3.stride(1), a3.stride(2),
             b3.data_ptr(), b3.stride(0), b3.stride(1), b3.stride(2),
-            out.data_ptr(), rows, n, state.data_ptr(), words, build.field_consts(params), build.current_stream(),
+            out.data_ptr(), rows, n, state.data_ptr(), words, build.field_consts(params), build.stream_of(a3),
         )
     build.check(err, f"field_scan[{mode}]")
     _count("scan", n)
     return out.reshape(moved).movedim(-1, dim)
+
+
+def _operands(ts, n: int, what: str) -> None:
+    """Raise unless every tensor is an (18, n) int32 CUDA tensor on one device."""
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_cuda or t.ndim != 2 or t.shape[0] != L or t.shape[1] != n:
+            raise ValueError(f"{what} kernel takes (18, {n}) int32 CUDA tensors, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{what} kernel operands lie on different devices")
+
+
+_dot_ctas: dict = {}
+_dot_scratch: dict = {}
+
+
+def dot_ctas(device) -> int:
+    """The CTAs of dot that the card holds at once (CUDA's occupancy query,
+    times the SMs)."""
+    n = _dot_ctas.get(device)
+    if n is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = build.get_lib("field_kernels").bb_field_dot_ctas(ctypes.addressof(out))
+        build.check(err, "the field_dot occupancy query")
+        n = _dot_ctas[device] = out.value
+    return n
+
+
+def dot_grid(capacity: int, rows: int, n: int) -> int:
+    """dot's CTAs per row: all rows' CTAs fill the card once (`capacity`
+    CTAs), and no CTA starts without a lane."""
+    return max(1, min(capacity // rows, -(-n // DOT_THREADS)))
+
+
+def _scratch(device, stream: int, words: int) -> torch.Tensor:
+    """dot's zeroed scratch for one stream, at least `words` int32 words (its
+    tickets are back at zero when each launch ends, so launches in the
+    stream's order share it)."""
+    key = (device, stream)
+    s = _dot_scratch.get(key)
+    if s is None or s.numel() < words:
+        s = _dot_scratch[key] = torch.zeros(words, dtype=torch.int32, device=device)
+    return s
+
+
+def _launch_dot(params: FieldParams, rows, table):
+    n = table.shape[1] if table.ndim == 2 else -1
+    _operands([table, *rows], n, "dot")
+    if n < 1:
+        raise ValueError("dot kernel takes at least one lane")
+    b_all = len(rows)
+    device = table.device
+    out = table.new_empty((L, b_all))
+    lib = build.get_lib("field_kernels")
+    with build.on_device(table):
+        stream = build.stream_of(table)
+        for start in range(0, b_all, DOT_MAX_ROWS):
+            part = rows[start : start + DOT_MAX_ROWS]
+            b = len(part)
+            ctas = dot_grid(dot_ctas(device), b, n)
+            scratch = _scratch(device, stream, DOT_MAX_ROWS + ctas * b * 9)
+            args = np.array([v for r in part for v in (r.data_ptr(), r.stride(0), r.stride(1))], dtype=np.int64)
+            err = lib.bb_field_dot(
+                b, args.ctypes.data, table.data_ptr(), table.stride(0), table.stride(1),
+                out.data_ptr() + 4 * start, b_all, 1, n, ctas, scratch.data_ptr(), scratch.numel(),
+                build.field_consts(params), stream,
+            )
+            build.check(err, "field_dot")
+            _count("dot", n)
+    return out
+
+
+def _launch_lincomb(params: FieldParams, polys, scalars):
+    n = polys[0].shape[1] if polys[0].ndim == 2 else -1
+    _operands(polys, n, "lincomb")
+    p = params.modulus
+    lib = build.get_lib("field_kernels")
+    acc = None
+    with build.on_device(polys[0]):
+        stream = build.stream_of(polys[0])
+        for start in range(0, len(polys), LINCOMB_MAX_TERMS):
+            part = polys[start : start + LINCOMB_MAX_TERMS]
+            args = np.array([v for p in part for v in (p.data_ptr(), p.stride(0), p.stride(1))], dtype=np.int64)
+            # each scalar's internal Montgomery form, 32 little-endian bytes
+            mont = b"".join((s * R_INTERNAL % p).to_bytes(32, "little") for s in scalars[start : start + LINCOMB_MAX_TERMS])
+            out = polys[0].new_empty((L, n))
+            err = lib.bb_field_lincomb(len(part), args.ctypes.data, mont, out.data_ptr(), n,
+                                       build.field_consts(params), stream)
+            build.check(err, "field_lincomb")
+            _count("lincomb", n)
+            acc = out if acc is None else _launch(params, "add", acc, out)
+    return acc
 
 
 def _dispatch(params, op, a, b=None):
@@ -264,3 +410,25 @@ def affine_scan(params: FieldParams, m, b, dim: int):
     if b.is_cuda:
         return _launch_scan(params, "affine", m, b, dim, False)
     return plain_affine_scan(params, m, b, dim)
+
+
+def dot(params: FieldParams, rows, table):
+    """(18, B): row r times `table` lane by lane, summed, for B rows of one
+    length n (a list of (18, n) tensors) against an (18, n) table."""
+    rows = list(rows)
+    if not rows:
+        raise ValueError("dot takes at least one row")
+    if table.is_cuda:
+        return _launch_dot(params, rows, table)
+    return plain_dot(params, rows, table)
+
+
+def linear_combination(params: FieldParams, polys, scalars):
+    """(18, n): sum_j scalars[j] polys[j] for host-int field values and
+    (18, n) tensors of one length."""
+    polys, scalars = list(polys), [int(s) for s in scalars]
+    if not polys or len(polys) != len(scalars):
+        raise ValueError("linear_combination takes one scalar per polynomial, and at least one")
+    if polys[0].is_cuda:
+        return _launch_lincomb(params, polys, scalars)
+    return plain_linear_combination(params, polys, scalars)

@@ -104,6 +104,7 @@ class Prover:
         self.sigma_1 = self.sigma_2 = self.sigma_3 = None
         self.z_poly = None
         self.r_poly = None
+        self._z_powers = self._shifted_z_powers = None  # z^k over 3n, (z w)^k over n
 
     def enc(self, value: int) -> torch.Tensor:
         """Host int -> (18, 1) internal-Montgomery tensor (challenge transport)."""
@@ -286,11 +287,11 @@ class Prover:
     # Round 4: evaluations + linearization
     # ------------------------------------------------------------------
     def _multi_eval(self, polys, zp) -> list:
-        """Evaluations of several size-n polynomials against one power
-        table; one copy to the host for all of them."""
+        """Evaluations of several polynomials of one length against one power
+        table (its first columns): one K1 ``dot`` launch and one copy to the
+        host for all of them."""
         fr = self.fr
-        evals = [arithmetic.evaluate_with_powers(fr, p, zp) for p in polys]
-        return fr.decode(torch.cat(evals, dim=1))
+        return fr.decode(fr.dot(polys, zp[:, : polys[0].shape[1]]))
 
     def _widget_dependencies(self) -> set:
         deps = set()
@@ -319,8 +320,10 @@ class Prover:
         beta_inv = pow(self.challenges.beta, -1, P)
         shifted_z = z * st.small_domain.root % P
 
-        zp = arithmetic.powers_table(fr, self.enc(z), n)
-        zp_shift = arithmetic.powers_table(fr, self.enc(shifted_z), n)
+        # one table of z^k at 3n serves every evaluation at z (t over 3n,
+        # the rest over its first n columns); one at the shifted z
+        zp = self._z_powers = arithmetic.powers_table(fr, self.enc(z), 3 * n)
+        zp_shift = self._shifted_z_powers = arithmetic.powers_table(fr, self.enc(shifted_z), n)
         evals_z = self._multi_eval(
             [self.w_l, self.w_r, self.w_o, self.sigma_1, self.sigma_2], zp
         )
@@ -340,7 +343,7 @@ class Prover:
         for w in self.widgets:
             w.compute_proof_elements(self.proof, z)
 
-        t_eval = arithmetic.evaluate(st.quotient_large[:, : 3 * n], z)
+        t_eval = self._multi_eval([st.quotient_large[:, : 3 * n]], zp)[0]
 
         lagrange_evals = arithmetic.get_lagrange_evaluations(z, st.small_domain)
         linear_terms = compute_linear_terms(
@@ -359,7 +362,7 @@ class Prover:
                 alpha_base, self.challenges.alpha, self.proof, r, fr
             )
         self.r_poly = r
-        self.proof.linear_eval = arithmetic.evaluate(r, z)
+        self.proof.linear_eval = self._multi_eval([r], zp)[0]
         return t_eval
 
     # ------------------------------------------------------------------
@@ -405,18 +408,19 @@ class Prover:
             )
 
         shifted_z = z * st.small_domain.root % P
-        opening_w = self._kate(opening, z)
-        shifted_w = self._kate(shifted_opening, shifted_z)
+        opening_w = self._kate(opening, z, self._z_powers)
+        shifted_w = self._kate(shifted_opening, shifted_z, self._shifted_z_powers)
         (
             self.proof.pi_z_commitment,
             self.proof.pi_z_omega_commitment,
         ) = self.commit_batch([opening_w, shifted_w])
 
-    def _kate(self, coeffs: torch.Tensor, point: int) -> torch.Tensor:
+    def _kate(self, coeffs: torch.Tensor, point: int, powers: torch.Tensor) -> torch.Tensor:
         """(F(X) - F(z)) / (X - z) via the affine-recurrence scan
-        d_i = (c_i - d_{i-1}) * (-1/z) (polynomial_arithmetic.cpp:562-591)."""
+        d_i = (c_i - d_{i-1}) * (-1/z) (polynomial_arithmetic.cpp:562-591);
+        `powers`: a table of point^k, F's length or longer."""
         fr = self.fr
-        f_val = arithmetic.evaluate(coeffs, point)
+        f_val = self._multi_eval([coeffs], powers)[0]
         w = (-pow(point, -1, P)) % P
         w_arr, neg_w_arr = self.enc(w), self.enc((-w) % P)
         b0 = fr.mont_mul(fr.sub(coeffs[:, :1], self.enc(f_val)), w_arr)

@@ -25,12 +25,10 @@ REQUIRES_W_O_SHIFTED = "w_o_shifted"
 
 
 def linear_combo(fr, terms):
-    """sum_i poly_i * scalar_i for host-int scalars, device polys."""
-    acc = None
-    for poly, scalar in terms:
-        t = fr.mul_by_constant(poly, scalar % P)
-        acc = t if acc is None else fr.add(acc, t)
-    return acc
+    """sum_i poly_i * scalar_i for host-int scalars, device polys of one
+    length: one K1 ``lincomb`` launch on the card."""
+    polys, scalars = zip(*terms)
+    return fr.linear_combination(polys, [s % P for s in scalars])
 
 
 class ProverArithmeticWidget:
@@ -71,12 +69,14 @@ class ProverArithmeticWidget:
 
     def compute_linear_contribution(self, alpha_base: int, alpha: int, proof, r, fr):
         """r += (q_m.wl_eval.wr_eval + q_l.wl + q_r.wr + q_o.wo + q_c).alpha_base
-        in coefficient form (arithmetic_widget.cpp:102-122)."""
+        in coefficient form (arithmetic_widget.cpp:102-122); r is the
+        combination's first term."""
         q_m, q_l, q_r, q_o, q_c = self._coeff
         w_lr = proof.w_l_eval * proof.w_r_eval % P
-        t = linear_combo(
+        r = linear_combo(
             fr,
             [
+                (r, 1),
                 (q_m, w_lr * alpha_base % P),
                 (q_l, proof.w_l_eval * alpha_base % P),
                 (q_r, proof.w_r_eval * alpha_base % P),
@@ -84,7 +84,7 @@ class ProverArithmeticWidget:
                 (q_c, alpha_base),
             ],
         )
-        return alpha_base * alpha % P, fr.add(r, t)
+        return alpha_base * alpha % P, r
 
     def compute_opening_poly_contribution(self, opening_poly, nu_base: int, nu: int):
         return opening_poly, nu_base  # arithmetic widget adds nothing

@@ -17,17 +17,6 @@ from ..fields.montgomery import Field
 from .domain import EvaluationDomain
 
 
-def tree_sum(fr: Field, x: torch.Tensor) -> torch.Tensor:
-    """Sum field elements along the last axis -> (18, ..., 1)."""
-    n = x.shape[-1]
-    while n > 1:
-        half = n // 2
-        s = fr.add(x[..., :half], x[..., half : 2 * half])
-        x = torch.cat([s, x[..., 2 * half :]], dim=-1) if n % 2 else s
-        n = x.shape[-1]
-    return x
-
-
 def powers_table(fr: Field, z_arr: torch.Tensor, n: int) -> torch.Tensor:
     """(18, n) table of z^k from a (18, 1) z tensor (one prefix-product scan)."""
     if n == 1:
@@ -37,8 +26,9 @@ def powers_table(fr: Field, z_arr: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def evaluate_with_powers(fr: Field, coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
-    """P(z) given a z-power table; stays on the device, (18, 1)."""
-    return tree_sum(fr, fr.mont_mul(coeffs, zp))
+    """P(z) given a z-power table of at least P's length (its first columns
+    are read); stays on the device, (18, 1). One K1 ``dot`` launch."""
+    return fr.dot([coeffs], zp[:, : coeffs.shape[1]])
 
 
 def evaluate(coeffs: torch.Tensor, z: int) -> int:

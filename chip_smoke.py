@@ -8,7 +8,9 @@ process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
 element) - K1 scan (prefix and suffix products and the affine recurrence,
 at ragged sizes, around its 1,024-element tiles and at every size the
-prove scans), the MSM bucket kernels, the window combine and the lane-wise
+prove scans), K1 dot and lincomb (1 row or term, the prove's 5 rows and 9
+terms and one more than a launch takes, at 1, 3, 2^11, n and 3n lanes,
+with zero, p - 1, broadcast and strided operands), the MSM bucket kernels, the window combine and the lane-wise
 point chains (K3d scalar_mul_bits at 16, 3 x 16, 3 x 2048 and 5 x 2048
 lanes, K3e fixed_base at 16 and 2^16 lanes) also on edge cases against the
 host oracle, the field power also against Python's pow, the precomputed
@@ -43,7 +45,9 @@ other than one per SRS generation, K4 / K3a / K3b-wide other than once per
 commitment call through the table, any per-round K3b, Horner combine,
 limb product of the eager GLV split on a CUDA tensor or (without naive
 MSMs) lane-wise add, K1 scan launches other than one per scan of the
-window, K1 mul launches above the window's ceiling, or if the 2^16 windows
+window, K1 dot launches other than one per batch of evaluations, K1
+lincomb launches other than one per linear combination, K1 mul or add
+launches above the window's ceilings, or if the 2^16 windows
 run the
 single-lane chains that K1 pow replaces or the K2 stage launches. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
@@ -133,6 +137,8 @@ REPLACES = {
     "bucket_reduce_wide": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82-104 and :107, over the one bucket set of :517",
     "glv_digits": "barretenberg_tpu/kernels/field_kernels.py:64 (to_plain, sub, mont_mul, add) with the limb products and windows of barretenberg_tpu/msm/wnaf.py:73-97, :136",
     "field_scan": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in the fori_loops of barretenberg_tpu/utils/scans.py:19-62 (hillis_scan, affine_scan)",
+    "field_dot": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in barretenberg_tpu/plonk/prover.py:259-271 (_multi_eval_jit) and barretenberg_tpu/polynomials/arithmetic.py:19-28, :55-58, :69-71 (_tree_sum, _evaluate_jit, evaluate_device)",
+    "field_lincomb": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in barretenberg_tpu/plonk/prover.py:274-282 (_linear_combo_jit)",
 }
 # K4's 32-bit multiply-adds per scalar: its four limb products at the
 # widths it is compiled with (9 x 3, 9 x 5, 3 x 5 and 5 x 3 wide multiplies
@@ -182,6 +188,29 @@ def timed_once(fn, device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(fn, device, kernel: str, reps: int = 20):
+    """Mean device milliseconds per launch of the CUDA kernel whose profiler
+    name contains `kernel`, over `reps` calls of fn after one warm-up
+    (torch.profiler); None on the CPU rehearsal. Fails if the profiler sees
+    no device time for it."""
+    if device.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    calls, total_us = sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+    if not calls or total_us <= 0:
+        fail("kernels", f"the profiler saw no device time for {kernel}")
+    return total_us / calls / 1e3
 
 
 def bound(nbytes: float, imads: float):
@@ -292,7 +321,7 @@ def field_op(params, op: str, x, y):
     return {"mul": field_kernels.mont_mul, "add": field_kernels.add, "sub": field_kernels.sub}[op](params, x, y)
 
 
-def check_field_kernels(device, lanes_check: int, lanes_time: int, rng, records: list) -> None:
+def check_field_kernels(device, lanes_check: int, lanes_time: int, dot_sizes: tuple, rng, records: list) -> None:
     for params, get in ((FR_PARAMS, get_fr), (FQ_PARAMS, get_fq)):
         field = get(device)
         a, b = edge_elements(field, lanes_check, rng), edge_elements(field, lanes_check, rng)
@@ -328,6 +357,126 @@ def check_field_kernels(device, lanes_check: int, lanes_time: int, rng, records:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "single_lane_ms": time_ms(lambda: field_op(FR_PARAMS, op, a1, y1), device, 50),
         })
+    check_field_dot(device, dot_sizes, rng, records)
+    check_field_lincomb(device, dot_sizes, rng, records)
+
+
+def dot_bound(rows: int, n: int):
+    """K1 dot's bound: each row and the table read once (72 bytes an
+    element), the sums written once, and rows x n products."""
+    return bound(ELEM_BYTES * ((rows + 1) * n + rows), rows * n * IMAD_PER_FIELD_MUL)
+
+
+def lincomb_bound(terms: int, n: int):
+    """K1 lincomb's bound: each term read once, the result written once,
+    terms x n products (the scalars arrive by value)."""
+    return bound(ELEM_BYTES * (terms + 1) * n, terms * n * IMAD_PER_FIELD_MUL)
+
+
+def edge_rows(field, count: int, n: int, rng) -> list:
+    """`count` (18, n) rows of seeded values; the first all zero and the
+    second all p - 1 (once there are three), the last a lane-stride-2 view
+    and, from four rows, the third a broadcast (18, 1) column."""
+    rows = [rand_lanes((n,), device=field.device, rng=rng) for _ in range(count)]
+    if count >= 3:
+        rows[0] = torch.zeros_like(rows[0])
+        rows[1] = field.encode([field.p - 1]).expand(18, n).contiguous()
+    if count >= 4:
+        rows[2] = field.encode(rand_values(1, field.p, rng)).expand(18, n)
+    if count >= 2:
+        rows[-1] = rand_lanes((2 * n,), device=field.device, rng=rng)[:, ::2]
+    return rows
+
+
+def check_field_dot(device, sizes: tuple, rng, records: list) -> None:
+    """K1 dot against its plain version (a product and the halving tree of
+    sums) over Fr at each of `sizes` lanes and over Fq at the smallest
+    three, for 1 row, the prove's 5 and DOT_MAX_ROWS + 1 (two launches);
+    the table the first n columns of a 3n table (the prove's strided view)
+    and, at 1 row, also a lane-stride-2 view; rows with zeros, p - 1, a
+    broadcast column and a strided view (edge_rows). Timed over Fr at the
+    prove's shapes: 5 rows x n (the evaluations at z, the first record's
+    shape), 1 row x 3n (t) and 1 row x n (r, the Kate values)."""
+    counts = (1, 5, field_kernels.DOT_MAX_ROWS + 1)
+    for params, get, ns in ((FR_PARAMS, get_fr, sizes), (FQ_PARAMS, get_fq, sizes[:3])):
+        field = get(device)
+        for n in ns:
+            table3 = rand_lanes((3 * n,), device, rng)
+            tables = [table3[:, :n]] + [rand_lanes((2 * n,), device, rng)[:, ::2]]
+            for b in counts:
+                rows = edge_rows(field, b, n, rng)
+                for table in tables if b == 1 else tables[:1]:
+                    got = field_kernels.dot(params, rows, table)
+                    if not torch.equal(got, field_kernels.plain_dot(params, rows, table)):
+                        fail("kernels", f"field dot over {params.name}, {b} rows x {n} lanes, disagrees with its plain version")
+    fr, n = get_fr(device), sizes[-2]
+    shapes = {"5 x n": (5, n, 3 * n), "1 x 3n": (1, 3 * n, 3 * n), "1 x n": (1, n, 3 * n)}
+    by_shape = {}
+    for label, (b, m, width) in shapes.items():
+        rows = [rand_lanes((m,), device, rng) for _ in range(b)]
+        table = rand_lanes((width,), device, rng)[:, :m]
+        b_ms, b_by = dot_bound(b, m)
+        by_shape[label] = {
+            "rows": b, "lanes": m,
+            "max_abs_err": max_abs_err([fr.dot(rows, table)], [field_kernels.plain_dot(FR_PARAMS, rows, table)]),
+            "ms": time_ms(lambda: fr.dot(rows, table), device, 50),
+            "device_ms": device_ms(lambda: fr.dot(rows, table), device, "field_dot_kernel"),
+            "plain_ms": time_ms(lambda: field_kernels.plain_dot(FR_PARAMS, rows, table), device, 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    main = by_shape["5 x n"]
+    records.append({
+        "name": "field_dot", "module": "field", "op": "dot", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/field_kernels.cu", "replaces": REPLACES["field_dot"],
+        "shape": [18, 5, n], "max_abs_err": max(v["max_abs_err"] for v in by_shape.values()),
+        **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "by_shape": by_shape,
+    })
+
+
+def check_field_lincomb(device, sizes: tuple, rng, records: list) -> None:
+    """K1 lincomb against its plain version (a product and a sum per term)
+    over Fr at each of `sizes` lanes and over Fq at the smallest three, for
+    1 term, the prove's 9 and LINCOMB_MAX_TERMS + 1 (two launches and one
+    K1 add), scalars 0, 1 and p - 1 first; terms with zeros, p - 1, a
+    broadcast column, a strided view (edge_rows) and a slice of a 3n array
+    (the opening's quotient thirds). Timed over Fr at the prove's shapes:
+    9 terms x n (the opening, the record's shape), 6 (r with the widget's
+    terms) and 1 (the shifted opening)."""
+    counts = (1, 9, field_kernels.LINCOMB_MAX_TERMS + 1)
+    for params, get, ns in ((FR_PARAMS, get_fr, sizes), (FQ_PARAMS, get_fq, sizes[:3])):
+        field = get(device)
+        for n in ns:
+            for j in counts:
+                polys = edge_rows(field, j, n, rng)
+                if j > 4:
+                    polys[3] = rand_lanes((3 * n,), device, rng)[:, n : 2 * n]
+                scalars = ([0, 1, field.p - 1] + rand_values(j, field.p, rng))[:j] if j > 1 else rand_values(1, field.p, rng)
+                got = field_kernels.linear_combination(params, polys, scalars)
+                if not torch.equal(got, field_kernels.plain_linear_combination(params, polys, scalars)):
+                    fail("kernels", f"field lincomb over {params.name}, {j} terms x {n} lanes, disagrees with its plain version")
+    fr, n = get_fr(device), sizes[-2]
+    by_terms = {}
+    for j in (9, 6, 1):
+        polys = [rand_lanes((n,), device, rng) for _ in range(j)]
+        scalars = rand_values(j, fr.p, rng)
+        b_ms, b_by = lincomb_bound(j, n)
+        by_terms[j] = {
+            "max_abs_err": max_abs_err([fr.linear_combination(polys, scalars)],
+                                       [field_kernels.plain_linear_combination(FR_PARAMS, polys, scalars)]),
+            "ms": time_ms(lambda: fr.linear_combination(polys, scalars), device, 50),
+            "device_ms": device_ms(lambda: fr.linear_combination(polys, scalars), device, "field_lincomb_kernel"),
+            "plain_ms": time_ms(lambda: field_kernels.plain_linear_combination(FR_PARAMS, polys, scalars), device, 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    main = by_terms[9]
+    records.append({
+        "name": "field_lincomb", "module": "field", "op": "lincomb", "route": "cuda",
+        "source": "barretenberg_tpu_torch/csrc/field_kernels.cu", "replaces": REPLACES["field_lincomb"],
+        "shape": [18, 9, n], "max_abs_err": max(v["max_abs_err"] for v in by_terms.values()),
+        **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "by_terms": by_terms,
+    })
 
 
 def rand_lanes(shape: tuple, device, rng) -> torch.Tensor:
@@ -1236,12 +1385,21 @@ OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"),
 # inversion (each batch normalisation of SRS generation, of the precomputed
 # table and of the six commit calls' results; the grand product's
 # denominators; the Lagrange denominators), the grand product's two
-# products, the powers tables, the domains' power tables and the two Kate
-# divisions. And the most K1 mul launches each window may run (the counts
-# measured on the card, PERF.md): a scan run as Hillis-Steele levels again
-# would add one to two mul launches per level.
-WINDOW_SCANS = {"golden": 40, "small": 42, "srs": 2, "prove": 40}
-WINDOW_MUL_MAX = {"golden": 122, "small": 122, "srs": 5, "prove": 117}
+# products, the two powers tables of the evaluations (z^k over 3n, (z w)^k
+# over n), the domains' power tables and the two Kate divisions. K1 dot
+# launches: one per batch of evaluations (the five at z, the shifted one,
+# t, r's value and the two Kate values); K1 lincomb launches: one per
+# linear combination (r's two terms, the widget's terms with r, the two
+# openings). And the most K1 mul and add launches each window may run (the
+# counts measured on the card, PERF.md): a scan run as Hillis-Steele levels
+# again would add one to two mul launches per level, an evaluation's
+# halving tree of sums one add per level, a combination run term by term
+# one mul and one add per term.
+WINDOW_SCANS = {"golden": 36, "small": 38, "srs": 2, "prove": 36}
+WINDOW_DOTS = {"golden": 6, "small": 6, "srs": 0, "prove": 6}
+WINDOW_LINCOMBS = {"golden": 4, "small": 4, "srs": 0, "prove": 4}
+WINDOW_MUL_MAX = {"golden": 95, "small": 95, "srs": 5, "prove": 90}
+WINDOW_ADD_MAX = {"golden": 32, "small": 32, "srs": 0, "prove": 32}
 
 
 def reset_counts() -> None:
@@ -1281,9 +1439,12 @@ def window_faults(window: str, counts: dict, naive_calls: int, srs_generations: 
     launch (one K3f for the table), with no per-round K3b, no Horner
     combine, no limb product of the eager GLV split on the card and, where
     no MSM is naive, no lane-wise add (the naive MSM's tree sums); one K1
-    scan per scan of the window, and no more K1 mul launches than its
-    ceiling (a scan's level chain would add 16 or more each)."""
-    want = {("field", "scan"): WINDOW_SCANS[window], ("point", "dbl"): 0, ("point", "mixed_add"): 0,
+    scan per scan of the window, one K1 dot per batch of evaluations, one
+    K1 lincomb per linear combination, and no more K1 mul and add launches
+    than the window's ceilings (a scan's level chain or an evaluation's
+    tree of sums would add 4 to 18 each)."""
+    want = {("field", "scan"): WINDOW_SCANS[window], ("field", "dot"): WINDOW_DOTS[window],
+            ("field", "lincomb"): WINDOW_LINCOMBS[window], ("point", "dbl"): 0, ("point", "mixed_add"): 0,
             ("point", "scalar_mul_bits"): naive_calls, ("point", "fixed_base"): srs_generations,
             ("point", "table_rows"): min(1, table_calls), ("msm", "bucket_accumulate"): table_calls,
             ("msm", "bucket_reduce_wide"): table_calls, ("msm", "glv_digits"): table_calls,
@@ -1291,8 +1452,9 @@ def window_faults(window: str, counts: dict, naive_calls: int, srs_generations: 
     if not naive_calls:
         want[("point", "add")] = 0
     faults = [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
-    if counts["field"]["mul"] > WINDOW_MUL_MAX[window]:
-        faults.append(f"field.mul={counts['field']['mul']} (want at most {WINDOW_MUL_MAX[window]})")
+    for op, ceiling in (("mul", WINDOW_MUL_MAX[window]), ("add", WINDOW_ADD_MAX[window])):
+        if counts["field"][op] > ceiling:
+            faults.append(f"field.{op}={counts['field'][op]} (want at most {ceiling})")
     return faults
 
 
@@ -1361,7 +1523,10 @@ def main() -> int:
     records: list = []
     lanes = 256 if rehearsal else 1 << 16
     wide = 512 if rehearsal else 4 << log2n
-    check_field_kernels(device, lanes, wide, rng, records)
+    # K1 dot and lincomb at one lane, a few, 2^11, the prove's n and 3n
+    # (the timed shapes are at the second last, n)
+    dot_sizes = (1, 3, 17, 64, 192) if rehearsal else (1, 3, 1 << 11, 1 << log2n, 3 << log2n)
+    check_field_kernels(device, lanes, wide, dot_sizes, rng, records)
     check_field_pow(device, lanes, rng, records)
     # K1 scan: ragged sizes and tile edges (1,024 elements a CTA), every
     # size the prove scans (the batch normalisations of a commit call's 1-5

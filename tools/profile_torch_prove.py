@@ -47,7 +47,8 @@ COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernel
 KERNEL_NAMES = {
     "field.mul": "field_op_kernel<0>", "field.sqr": "field_op_kernel<1>",
     "field.add": "field_op_kernel<2>", "field.sub": "field_op_kernel<3>",
-    "field.pow": "field_pow_kernel", "field.scan": "field_scan_kernel", "butterfly.stage": "butterfly_stage_kernel",
+    "field.pow": "field_pow_kernel", "field.scan": "field_scan_kernel", "field.dot": "field_dot_kernel",
+    "field.lincomb": "field_lincomb_kernel", "butterfly.stage": "butterfly_stage_kernel",
     "butterfly.pass": "fft_pass_kernel",
     "point.dbl": "point_dbl_kernel", "point.add": "point_add_kernel<false>",
     "point.mixed_add": "point_add_kernel<true>", "msm.bucket_accumulate": "bucket_accumulate_kernel",
