@@ -20,7 +20,12 @@ from .config import resolve_device
 from .fields.params import LIMB_BITS, NUM_LIMBS
 from .groups import AffinePoints, JacobianPoints
 from .plonk.prover import Prover
-from .plonk.widgets import ProverArithmeticWidget
+from .plonk.widgets import (
+    ProverArithmeticWidget,
+    ProverBoolWidget,
+    ProverMiMCWidget,
+    ProverSequentialWidget,
+)
 from .srs import ReferenceString
 
 
@@ -62,13 +67,25 @@ def reference_string(mono_x, mono_y, mono_inf, g2_x, device=None) -> ReferenceSt
 
 
 def prover_from_arrays(
-    n: int, srs: ReferenceString, wires, selectors, sigma_mappings
+    n: int,
+    srs: ReferenceString,
+    wires,
+    selectors,
+    sigma_mappings,
+    *,
+    q_oo=None,
+    bool_selectors=None,
+    mimc_selectors=None,
 ) -> Prover:
-    """A whole arithmetic-widget prover fixture on the SRS's device.
+    """A whole prover fixture on the SRS's device.
 
     wires: (w_l, w_r, w_o) evaluation-form limb arrays; selectors: (q_m, q_l,
     q_r, q_o, q_c) limb arrays; sigma_mappings: three uint32 (n,) arrays in
-    the composer encoding."""
+    the composer encoding. The optional selectors add widgets in the order
+    the composers give them (arithmetic, sequential, bool, MiMC), which fixes
+    each widget's alpha powers: q_oo the sequential widget's q_o_next;
+    bool_selectors (q_bl, q_br, q_bo); mimc_selectors (q_mimc_selector,
+    q_mimc_coefficient)."""
     device = srs.monomials.x.device
     prover = Prover(n, srs)
     prover.w_l, prover.w_r, prover.w_o = (field_tensor(w, device) for w in wires)
@@ -80,4 +97,10 @@ def prover_from_arrays(
     prover.widgets.append(
         ProverArithmeticWidget(*(field_tensor(q, device) for q in selectors))
     )
+    if q_oo is not None:
+        prover.widgets.append(ProverSequentialWidget(field_tensor(q_oo, device)))
+    if bool_selectors is not None:
+        prover.widgets.append(ProverBoolWidget(*(field_tensor(q, device) for q in bool_selectors)))
+    if mimc_selectors is not None:
+        prover.widgets.append(ProverMiMCWidget(*(field_tensor(q, device) for q in mimc_selectors)))
     return prover

@@ -72,7 +72,9 @@ class Prover:
     """Inputs (from a hand-built fixture or convert.prover_from_arrays):
       * wire values w_l/w_r/w_o in evaluation form, (18, n) device tensors;
       * sigma mappings (uint32 numpy arrays, composer encoding);
-      * widgets (ProverArithmeticWidget);
+      * widgets (ProverArithmeticWidget, then any of ProverSequentialWidget,
+        ProverBoolWidget, ProverMiMCWidget in the composers' order, which
+        fixes each widget's alpha powers);
       * reference string (SRS) with >= n monomials, on the same device.
     """
 
@@ -324,8 +326,13 @@ class Prover:
         # the rest over its first n columns); one at the shifted z
         zp = self._z_powers = arithmetic.powers_table(fr, self.enc(z), 3 * n)
         zp_shift = self._shifted_z_powers = arithmetic.powers_table(fr, self.enc(shifted_z), n)
+        # the widgets' own evaluations at z (MiMC's q_mimc_coefficient) ride
+        # the same batch
+        widget_evals = [e for w in self.widgets for e in w.proof_evaluations()]
         evals_z = self._multi_eval(
-            [self.w_l, self.w_r, self.w_o, self.sigma_1, self.sigma_2], zp
+            [self.w_l, self.w_r, self.w_o, self.sigma_1, self.sigma_2]
+            + [poly for _, poly in widget_evals],
+            zp,
         )
         self.proof.w_l_eval = evals_z[0]
         self.proof.w_r_eval = evals_z[1]
@@ -333,15 +340,14 @@ class Prover:
         # sigma polys are beta-scaled in coefficient form; undo for the proof
         self.proof.sigma_1_eval = evals_z[3] * beta_inv % P
         self.proof.sigma_2_eval = evals_z[4] * beta_inv % P
+        for (attr, _), value in zip(widget_evals, evals_z[5:]):
+            setattr(self.proof, attr, value)
 
         shifted = self._shifted_wires()
         evals_sh = self._multi_eval([self.z_poly] + [w for _, w in shifted], zp_shift)
         self.proof.z_1_shifted_eval = evals_sh[0]
         for (attr, _), value in zip(shifted, evals_sh[1:]):
             setattr(self.proof, attr, value)
-
-        for w in self.widgets:
-            w.compute_proof_elements(self.proof, z)
 
         t_eval = self._multi_eval([st.quotient_large[:, : 3 * n]], zp)[0]
 
@@ -381,6 +387,17 @@ class Prover:
         beta_inv = pow(self.challenges.beta, -1, P)
         z = self.challenges.z
         q = st.quotient_large
+        shifted_terms = [(self.z_poly, nu_pow[6])]
+        nu_base = nu_pow[7]
+        for _, wire in self._shifted_wires():
+            shifted_terms.append((wire, nu_base))
+            nu_base = nu_base * nu % P
+        # the widgets' opening terms (MiMC's q_mimc_coefficient) join the
+        # opening's one combination
+        widget_terms = []
+        for w in self.widgets:
+            terms, nu_base = w.opening_terms(nu_base, nu)
+            widget_terms += terms
         opening = linear_combo(
             fr,
             [
@@ -393,19 +410,10 @@ class Prover:
                 (self.w_o, nu_pow[3]),
                 (self.sigma_1, nu_pow[4] * beta_inv),
                 (self.sigma_2, nu_pow[5] * beta_inv),
-            ],
+            ]
+            + widget_terms,
         )
-        shifted_terms = [(self.z_poly, nu_pow[6])]
-        nu_base = nu_pow[7]
-        for _, wire in self._shifted_wires():
-            shifted_terms.append((wire, nu_base))
-            nu_base = nu_base * nu % P
         shifted_opening = linear_combo(fr, shifted_terms)
-
-        for w in self.widgets:
-            opening, nu_base = w.compute_opening_poly_contribution(
-                opening, nu_base, nu
-            )
 
         shifted_z = z * st.small_domain.root % P
         opening_w = self._kate(opening, z, self._z_powers)

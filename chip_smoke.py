@@ -49,7 +49,19 @@ window, K1 dot launches other than one per batch of evaluations, K1
 lincomb launches other than one per linear combination, K1 mul or add
 launches above the window's ceilings, or if the 2^16 windows
 run the
-single-lane chains that K1 pow replaces or the K2 stage launches. Each
+single-lane chains that K1 pow replaces or the K2 stage launches. Last, the
+circuits phase (counted window "circuits") drives the circuit front end
+the way a user does - a composer, stdlib gadgets, `composer.preprocess()`,
+`plonk.preprocess`, `construct_proof`, `verify_proof` - for the reference's
+bench circuits: SHA-256 of "abc" (65,167 gates, n = 2^16, on the prove
+phase's SRS and table), Bool 1,100 pairs, MiMC 32 blocks and the Extended
+chain of 5,000 (n = 2^12, their proof digests pinned to the JAX
+prover's), each verified and a tampered proof rejected, then proves the
+cross-implementation fixture bool_n256 to CROSSCHECK.json's SHA-256; it
+fails if a circuit's launches are not one K4, K3a and K3b-wide per commit
+call, one K1 scan per scan, pow per batch inversion, dot per batch of
+evaluations, lincomb per linear combination, or exceed the mul / add
+ceilings of its widgets' chains. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
 
@@ -62,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
 import subprocess
 import sys
@@ -71,6 +84,8 @@ import numpy as np
 import torch
 
 from barretenberg_tpu_torch import convert
+from barretenberg_tpu_torch.composer import StandardComposer
+from barretenberg_tpu_torch.fixtures import BENCH_DIGESTS, CROSSCHECK_SHA256, bench_circuit, crosscheck_prover
 from barretenberg_tpu_torch.fields import fq as get_fq, fr as get_fr
 from barretenberg_tpu_torch.fields.glv import split_into_endomorphism_scalars
 from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
@@ -97,8 +112,9 @@ from barretenberg_tpu_torch.msm import wnaf
 from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.plonk.prover import Prover
-from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft
-from barretenberg_tpu_torch.srs import test_srs
+from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
+from barretenberg_tpu_torch.srs import reference_string as srs_cache, test_srs
+from barretenberg_tpu_torch.stdlib import Uint32, witness_t
 from barretenberg_tpu_torch.transcript.keccak import keccak256
 from barretenberg_tpu_torch.utils import host_curve
 
@@ -1486,6 +1502,153 @@ def prove_and_verify(n: int, seed: int, device, timings=None):
     return proof, accepted, verifier.verify_proof(tampered)
 
 
+# ---------------------------------------------------------------------------
+# the circuit front end (phase "circuits", counted window "circuits")
+CIRCUITS = ("sha256", "bool", "mimc", "extended")
+# the domain tables a prove builds on first use, one K1 scan each, by
+# domain (log2 of size / n): the iFFT's inverse twiddles and the grand
+# product's roots at n; the coset FFTs' and iFFTs' twiddles and scales and
+# the coset roots (boundary terms, vanishing division) at 2n and 4n
+DOMAIN_TABLES = {0: ("inverse_twiddles", "_root_vector"),
+                 1: ("twiddles", "inverse_twiddles", "coset_scale", "coset_scale_inverse", "_root_vector"),
+                 2: ("twiddles", "inverse_twiddles", "coset_scale", "coset_scale_inverse", "_root_vector")}
+# K1 mul and add launches of each widget's quotient chain (the arithmetic
+# widget's are inside the prove window's ceilings): Bool (w^2 - w).q_b per
+# wire; Sequential w_o(X.omega).q_oo; MiMC t0^3, t0.w_r^2, the alpha scale
+# and the selector, t0 = w_o + w_l + q_mimc_c
+WIDGET_MULS = {"ProverBoolWidget": 6, "ProverSequentialWidget": 1, "ProverMiMCWidget": 6}
+WIDGET_ADDS = {"ProverBoolWidget": 3, "ProverSequentialWidget": 1, "ProverMiMCWidget": 4}
+NORMALIZE_MULS = 5  # K1 mul launches of one batch normalisation of points
+
+
+def srs_generations() -> int:
+    return srs_cache._test_srs.cache_info().misses
+
+
+def circuit_builds(prover, generations_before: int) -> dict:
+    """What a prove builds that the run did not hold before it, read before
+    its first commitment: the SRS (generated by test_srs since
+    `generations_before`), the SRS's precomputed Pippenger table and the
+    domain tables of DOMAIN_TABLES."""
+    n = prover.n
+    table = Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N
+    return {"srs": srs_generations() - generations_before,
+            "table": int(table and n not in prover.reference_string._pip_tables),
+            "domain_tables": sum(name not in vars(get_domain(n << k, prover.device))
+                                 for k, names in DOMAIN_TABLES.items() for name in names)}
+
+
+def circuit_faults(counts: dict, widgets: list, commit_calls: int, n: int, builds: dict) -> list:
+    """A circuit's launches: one K4, K3a and K3b-wide per commit call from
+    2^10 gates (one K3d per call below), one K3f per table and one K3e per
+    SRS built; one K1 scan per scan (two per batch inversion - each batch
+    normalisation of points, the grand product's denominators, the Lagrange
+    denominators - the grand product's two products, the two powers tables,
+    the two Kate divisions, each domain table built), one K1 pow per batch
+    inversion, one K1 dot per batch of evaluations (the widgets' own rows
+    ride the batch at z), one K1 lincomb per linear combination (r's first
+    terms, one per widget, the two openings), no lane-wise point doubling
+    or mixed add, and K1 mul / add launches no more than the prove window's
+    ceilings plus the widgets' chains and the commit calls' normalisations
+    beyond the prove window's."""
+    table = Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N
+    inversions = commit_calls + builds["table"] + builds["srs"] + 2
+    want = {("field", "scan"): 2 * inversions + 6 + builds["domain_tables"], ("field", "pow"): inversions,
+            ("field", "dot"): 6, ("field", "lincomb"): 3 + len(widgets),
+            ("point", "dbl"): 0, ("point", "mixed_add"): 0,
+            ("point", "scalar_mul_bits"): 0 if table else commit_calls, ("point", "fixed_base"): builds["srs"],
+            ("point", "table_rows"): builds["table"], ("msm", "bucket_reduce"): 0, ("msm", "window_combine"): 0,
+            ("eager", "mul_full_const"): 0, ("butterfly", "stage"): 0}
+    for op in ("glv_digits", "bucket_accumulate", "bucket_reduce_wide"):
+        want[("msm", op)] = commit_calls if table else 0
+    if table:
+        want[("point", "add")] = 0
+    faults = [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
+    kinds = [type(w).__name__ for w in widgets]
+    mul_max = (WINDOW_MUL_MAX["prove"] + NORMALIZE_MULS * (commit_calls - COMMIT_CALLS + builds["srs"])
+               + sum(WIDGET_MULS.get(k, 0) for k in kinds))
+    add_max = WINDOW_ADD_MAX["prove"] + sum(WIDGET_ADDS.get(k, 0) for k in kinds)
+    for op, ceiling in (("mul", mul_max), ("add", add_max)):
+        if counts["field"][op] > ceiling:
+            faults.append(f"field.{op}={counts['field'][op]} (want at most {ceiling})")
+    return faults
+
+
+def sub_counts(after: dict, before: dict) -> dict:
+    return {mod: {op: v - before[mod][op] for op, v in ops.items()} for mod, ops in after.items()}
+
+
+def rehearsal_uint32():
+    """A small uint32 circuit (a witness word range-checked by its bits, and
+    a normalised sum) in place of SHA-256 at toy size."""
+    ctx = StandardComposer()
+    a = Uint32.from_witness(witness_t(ctx, 0xAABBCCDD))
+    (a + Uint32(ctx, value=0x11223344)).normalize()
+    ctx.create_dummy_gates()
+    return ctx
+
+
+def circuit_record(name: str, gates: int, prover, proof, timings: dict, before: dict, builds: dict,
+                   commit_calls: int, **extra) -> dict:
+    launches = sub_counts(read_counts(), before)
+    return {"circuit": name, "gates": gates, "n": prover.n, "widgets": [type(w).__name__ for w in prover.widgets],
+            **extra, "prove_seconds": round(sum(timings.values()), 4), "phase_seconds": timings,
+            "digest": hashlib.sha256(proof.serialize()).hexdigest(), "commit_calls": commit_calls,
+            "builds": builds, "launches": launches,
+            "faults": circuit_faults(launches, prover.widgets, commit_calls, prover.n, builds)}
+
+
+def prove_circuit(name: str, device, rehearsal: bool) -> dict:
+    """Build a bench circuit, preprocess it through its composer (the SRS
+    from test_srs, on `device`), prove, verify, and reject a tampered proof.
+    Returns the circuit's record, with the launches it took."""
+    before, generations = read_counts(), srs_generations()
+    t0 = time.perf_counter()
+    if rehearsal:
+        ctx = {"sha256": rehearsal_uint32,
+               "bool": lambda: bench_circuit("bool", pairs=4), "mimc": lambda: bench_circuit("mimc", blocks=1),
+               "extended": lambda: bench_circuit("extended", length=6)}[name]()
+    else:
+        ctx = bench_circuit(name)
+    build_s = time.perf_counter() - t0
+    gates = ctx.n
+    t0 = time.perf_counter()
+    prover = ctx.preprocess(device=device)
+    builds = circuit_builds(prover, generations)
+    verifier = preprocess(prover)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    preprocess_s = time.perf_counter() - t0
+    timings: dict = {}
+    proof = prover.construct_proof(timings)
+    t0 = time.perf_counter()
+    accepted = verifier.verify_proof(proof)
+    verify_s = time.perf_counter() - t0
+    tampered = copy.deepcopy(proof)
+    tampered.w_l_eval = (tampered.w_l_eval + 1) % FR_MODULUS
+    # the prove's four commit calls, the sigmas' and one per widget's selectors
+    return circuit_record(name, gates, prover, proof, timings, before, builds, 4 + 1 + len(prover.widgets),
+                          build_seconds=round(build_s, 3), preprocess_seconds=round(preprocess_s, 3),
+                          verify_seconds=round(verify_s, 3), accepted=accepted,
+                          tampered_accepted=verifier.verify_proof(tampered))
+
+
+def prove_crosscheck(device, rehearsal: bool) -> dict:
+    """The crosscheck fixture (bool_n256 on the card, arithmetic_n16 in the
+    rehearsal) against test_srs(256): its proof's SHA-256 must be the
+    reference C++ prover's. Its Bool selectors sit on rows whose wires are
+    not boolean, so it is proved but not verified."""
+    n, with_bool = (16, False) if rehearsal else (256, True)
+    before, generations = read_counts(), srs_generations()
+    prover = crosscheck_prover(test_srs(256, device=device), n, with_bool)
+    builds = circuit_builds(prover, generations)
+    timings: dict = {}
+    proof = prover.construct_proof(timings)
+    record = circuit_record(f"crosscheck_n{n}", n, prover, proof, timings, before, builds, 4)
+    record["want_digest"] = CROSSCHECK_SHA256[(n, with_bool)]
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-n", type=int, default=16, help="gates of the main-path circuit")
@@ -1652,13 +1815,40 @@ def main() -> int:
           "launches": counts, "single_lane_launches": single, "srs_prove_launches": main_counts,
           "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
 
+    # ---- phase 7: the circuit front end (window "circuits") ---------------
+    # the reference's bench circuits built with the composers and stdlib
+    # gadgets - SHA-256 of "abc" at n = 2^16 on the prove phase's SRS and
+    # table, Bool, MiMC and Extended at 2^12 - then the crosscheck fixture
+    reset_counts()
+    t0 = time.perf_counter()
+    circuits = [prove_circuit(name, device, rehearsal) for name in CIRCUITS]
+    cross = prove_crosscheck(device, rehearsal)
+    circuits_s = time.perf_counter() - t0
+    counts["circuits"], single["circuits"] = read_counts(), read_single_lane()
+    bad = [f"{c['circuit']}: accepted={c['accepted']} tampered_accepted={c['tampered_accepted']}"
+           for c in circuits if not c["accepted"] or c["tampered_accepted"]]
+    bad += [f"{c['circuit']}: digest {c['digest']} (pinned {BENCH_DIGESTS[c['circuit']]})"
+            for c in circuits if not rehearsal and c["circuit"] in BENCH_DIGESTS
+            and c["digest"] != BENCH_DIGESTS[c["circuit"]]]
+    if cross["digest"] != cross["want_digest"]:
+        bad.append(f"{cross['circuit']}: sha256 {cross['digest']} (CROSSCHECK.json {cross['want_digest']})")
+    if not rehearsal:
+        bad += [f"{c['circuit']} launches: {c['faults']}" for c in circuits + [cross] if c["faults"]]
+    if bad:
+        fail("circuits", "; ".join(bad))
+    for c in circuits + [cross]:
+        emit({"phase": "circuit", **{k: v for k, v in c.items() if k != "faults"}})
+    emit({"phase": "circuits", "ok": True, "seconds": round(circuits_s, 3), "launches": counts["circuits"]})
+
     # ---- results ----------------------------------------------------------
+    windows = WINDOWS + ("circuits",)
+    all_counts = add_counts([counts[w] for w in windows])
     for r in records:
         mod, op = r.pop("module"), r.pop("op")
         r["launches"] = all_counts[mod][op]
-        r["launches_by_window"] = {w: counts[w][mod][op] for w in WINDOWS}
+        r["launches_by_window"] = {w: counts[w][mod][op] for w in windows}
         if op in single["prove"].get(mod, {}):
-            r["single_lane_launches"] = sum(single[w][mod][op] for w in WINDOWS)
+            r["single_lane_launches"] = sum(single[w][mod][op] for w in windows)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": records})
     print(smi, flush=True)
