@@ -24,7 +24,10 @@
 //
 // K3b-wide bucket_reduce_wide: the same function for bucket sets too large
 // for one CTA - the precomputed-table MSM puts all of its rounds into one
-// set (14,848 partials at 2^16 points against 1,536 per round). The set's
+// set (14,848 partials at 2^16 points against 1,536 per round), and the
+// rounds-batched MSM hands it its B x R rounds as B x R sets (20,480
+// partials a round at 2^20 points, where K3b's one CTA a round leaves most
+// of the card idle). The set's
 // partials are cut at bucket boundaries into ranges of `range_buckets`
 // buckets, one cluster of WIDE_CLUSTER CTAs each; a bucket is never split.
 // No add of the segmented scan crosses a segment start, so a range that
@@ -45,8 +48,10 @@
 //
 // K3c window_combine: the Horner combine of the rounds' window sums,
 // most significant first - c doublings of the running sum, then one add of
-// the next window - on one thread, in one launch. The chain is serial, and
-// any other grouping of the sums would change the Jacobian coordinates.
+// the next window - one thread per MSM, the MSMs of a commit call in one
+// launch. Each chain is serial, and any other grouping of the sums would
+// change the Jacobian coordinates; the chains run side by side in one warp,
+// so a launch takes one chain's time.
 //
 // K4 glv_digits: one thread per scalar leaves Montgomery form, splits k =
 // k1 - k2 lambda (mod r) with the Babai quotients as the high limbs of limb
@@ -71,6 +76,7 @@ namespace cg = cooperative_groups;
 #define REDUCE_THREADS 256
 #define WIDE_CLUSTER 8  // K3b-wide: CTAs per cluster (the portable cluster size)
 #define DIGIT_THREADS 128
+#define COMBINE_THREADS 32  // K3c: chains per CTA
 
 __device__ __forceinline__ int bucket_of(int d, int nbuckets) {
     int mag = d < 0 ? -d : d;
@@ -480,22 +486,26 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
 // ---------------------------------------------------------------------------
 // K3c
 // ---------------------------------------------------------------------------
-// win: (18, rounds) window sums (lane r = round r), as K3b writes them.
-// out: one point, which also holds the running sum between rounds: a round
-// loads it, doubles it c times in registers, adds its window and stores it
-// back. (With the sum carried in registers across rounds, cicc of CUDA 12.9
-// crashes on this kernel.) The sum starts at infinity with zero
+// win: (18, sets * rounds) window sums, lane s * rounds + r = MSM s's round
+// r, as K3b-wide writes them for sets * rounds bucket sets. out: (18, sets),
+// one point per MSM, which also holds its running sum between rounds: a
+// round loads it, doubles it c times in registers, adds its window and
+// stores it back. (With the sum carried in registers across rounds, cicc of
+// CUDA 12.9 crashes on this kernel.) The sum starts at infinity with zero
 // coordinates; a doubling leaves the infinity flag as it is and doubles the
 // coordinates, as the lane-wise point_dbl kernel does.
-__global__ void __launch_bounds__(1)
-window_combine_kernel(Pts win, int rounds, int c, Pts out, FieldConst fc) {
+__global__ void __launch_bounds__(COMBINE_THREADS)
+window_combine_kernel(Pts win, int sets, int rounds, int c, Pts out, FieldConst fc) {
+    const int s = blockIdx.x * blockDim.x + threadIdx.x;
+    if (s >= sets) return;
+    const long wstride = (long)sets * rounds, wbase = (long)s * rounds;
     jpt acc;
     acc.x = acc.y = acc.z = fe_zero();
     acc.inf = true;
-    store_pt(out, 0, 1, acc);
+    store_pt(out, s, sets, acc);
 #pragma unroll 1
     for (int r = rounds - 1; r >= 0; --r) {
-        jpt p = load_pt_cg(out, 0, 1);
+        jpt p = load_pt_cg(out, s, sets);
 #pragma unroll 1
         for (int k = 0; k < c; ++k) {
             jac d = jac_dbl(p.x, p.y, p.z, fc);
@@ -503,9 +513,9 @@ window_combine_kernel(Pts win, int rounds, int c, Pts out, FieldConst fc) {
             p.y = d.y;
             p.z = d.z;
         }
-        jpt w = load_pt_cg(win, r, rounds);
+        jpt w = load_pt_cg(win, wbase + r, wstride);
         p = jac_add<false>(p.x, p.y, p.z, p.inf, w.x, w.y, w.z, w.inf, fc);
-        store_pt(out, 0, 1, p);
+        store_pt(out, s, sets, p);
     }
 }
 
@@ -738,12 +748,13 @@ extern "C" int bb_glv_digits(const void* scalars, void* out, int sets, int n, in
 }
 
 extern "C" int bb_window_combine(const void* wx, const void* wy, const void* wz, const void* winf,
-                                 void* ox, void* oy, void* oz, void* oinf, int rounds, int c,
+                                 void* ox, void* oy, void* oz, void* oinf, int sets, int rounds, int c,
                                  const uint32_t* consts, void* stream) {
-    if (rounds <= 0 || c < 0) return (int)cudaErrorInvalidValue;
+    if (sets <= 0 || rounds <= 0 || c < 0) return (int)cudaErrorInvalidValue;
     Pts win = {(uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, (uint8_t*)winf};
     Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
-    window_combine_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(win, rounds, c, out,
-                                                             field_const_from_host(consts));
+    const unsigned grid = (unsigned)((sets + COMBINE_THREADS - 1) / COMBINE_THREADS);
+    window_combine_kernel<<<grid, COMBINE_THREADS, 0, (cudaStream_t)stream>>>(win, sets, rounds, c, out,
+                                                                             field_const_from_host(consts));
     return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ reference test vectors can be used verbatim.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -38,28 +39,34 @@ def limbs_to_int(limbs) -> int:
     return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(arr))
 
 
+_WORDS = 5  # 64-bit words per value in ints_to_limbs: 320 bits >= 270
+_TO_BYTES = functools.partial(int.to_bytes, length=8 * _WORDS, byteorder="little")
+
+
 def ints_to_limbs(values: Sequence[int]) -> np.ndarray:
-    """Batch of integers -> (NUM_LIMBS, N) uint32 limbs (vectorized: the
-    per-element Python limb loop cost minutes at SRS/prover scale)."""
+    """Batch of integers 0 <= v < 2^270 -> (NUM_LIMBS, N) uint32 limbs. One
+    ``to_bytes`` per value; the limbs are cut out of the values' 64-bit
+    words with numpy shifts (a per-element Python limb loop cost minutes at
+    SRS / prover scale)."""
     n = len(values)
     if n == 0:
         return np.empty((NUM_LIMBS, 0), dtype=np.uint32)
     try:
-        buf = b"".join(int(v).to_bytes(34, "little") for v in values)
+        buf = b"".join(map(_TO_BYTES, map(int, values)))
     except OverflowError as e:
         raise ValueError("value does not fit in 270 bits") from e
-    a = np.frombuffer(buf, dtype=np.uint8).reshape(n, 34)
-    bits = np.unpackbits(a, axis=1, bitorder="little")  # (n, 272)
-    if bits[:, NUM_LIMBS * LIMB_BITS :].any():
+    words = np.frombuffer(buf, dtype="<u8").reshape(n, _WORDS).T
+    top = NUM_LIMBS * LIMB_BITS - 64 * (_WORDS - 1)  # bits of the last word a limb may use
+    if (words[_WORDS - 1] >> np.uint64(top)).any():
         raise ValueError("value does not fit in 270 bits")
-    weights = (1 << np.arange(LIMB_BITS, dtype=np.uint32)).astype(np.uint32)
-    limbs = (
-        bits[:, : NUM_LIMBS * LIMB_BITS]
-        .reshape(n, NUM_LIMBS, LIMB_BITS)
-        .astype(np.uint32)
-        @ weights
-    )
-    return np.ascontiguousarray(limbs.T.astype(np.uint32))
+    limbs = np.empty((NUM_LIMBS, n), dtype=np.uint32)
+    for i in range(NUM_LIMBS):
+        w, s = divmod(LIMB_BITS * i, 64)
+        v = words[w] >> np.uint64(s)
+        if s + LIMB_BITS > 64:
+            v = v | (words[w + 1] << np.uint64(64 - s))
+        limbs[i] = v & np.uint64(LIMB_MASK)
+    return limbs
 
 
 def limbs_to_ints(limbs) -> list[int]:

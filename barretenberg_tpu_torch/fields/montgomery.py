@@ -62,9 +62,11 @@ class Field:
         return self._tensor(int_to_limbs((value % self.p) * R_INTERNAL % self.p))
 
     def encode(self, values) -> torch.Tensor:
-        """List of field values -> internal-Montgomery (18, N) tensor."""
-        vals = [(int(v) % self.p) * R_INTERNAL % self.p for v in values]
-        return self._tensor(ints_to_limbs(vals))
+        """List of field values (any ints, reduced mod p) -> internal-Montgomery
+        (18, N) tensor: one Python product per value, the limbs cut out by
+        numpy (``ints_to_limbs``)."""
+        p, r = self.p, R_INTERNAL % self.p
+        return self._tensor(ints_to_limbs([v % p * r % p for v in map(int, values)]))
 
     def decode(self, limbs: torch.Tensor) -> list[int]:
         """Internal-Montgomery (18, *batch) -> list of field values (copies

@@ -10,7 +10,8 @@ package of the same interface.
 
 The cross-implementation fixture is the deterministic splitmix64 circuit
 that the reference C++ prover and the JAX package both prove to the same
-bytes (`CROSSCHECK.json`: ``arithmetic_n16`` and ``bool_n256``).
+bytes (`CROSSCHECK.json`: ``arithmetic_n16``, ``bool_n256`` and, at the
+reference's own size, ``arithmetic_2e20``).
 
 The circuit fills the first half of n rows with pairs of gates, a
 satisfied mul+add gate (w_o = w_l.w_r + w_l + w_r + 1) and a random gate
@@ -19,7 +20,8 @@ half through the sigma mappings, and zeroes the last row of each half. With
 ``with_bool`` a Bool widget takes selectors on every 3rd / 5th / 7th row
 (the rows where the circuit's wires are not boolean make the proof fail to
 verify, but its bytes are still pinned). Prove it against ``test_srs(256)``
-(secret 0xA11CE); the prover takes the SRS's first n points.
+(``test_srs(2^20)`` at 2^20; secret 0xA11CE); the prover takes the SRS's
+first n points.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from .plonk.prover import Prover
 from .plonk.widgets import ProverArithmeticWidget, ProverBoolWidget
 
 P = FR_MODULUS
-MASK64 = (1 << 64) - 1
 SEED = 0x5EED5EED5EED5EED
 
 # proof_sha256 of CROSSCHECK.json's cases (the reference C++ prover's bytes)
@@ -42,6 +43,10 @@ CROSSCHECK_SHA256 = {
     (16, False): "c5bce03f8484fb8d59c6101ec7965218bddc3457e357c5c4080691abe60904c5",
     (256, True): "6c5c6116078a6bf80e9e4014cb019b1ba735f708bba5c7acbb878271285ff0b0",
 }
+# arithmetic_2e20: the same fixture at the reference's own size, 2^20 gates,
+# proved against test_srs(2^20); a card proves it (chip_smoke.py phase
+# "large"), a CPU test cannot in its time
+CROSSCHECK_2E20_SHA256 = "113fe0aad8656e04869b3bb89988ae70449ad7d055fbecd05b8de71a5eedab45"
 
 
 def _sha256_abc(composer, stdlib):
@@ -127,64 +132,60 @@ def bench_circuit(name: str, composer=None, stdlib=None, **size):
     return BENCH_CIRCUITS[name](composer or _composer, stdlib or _stdlib, **size)
 
 
-def _splitmix_stream(state: int):
-    while True:
-        state = (state + 0x9E3779B97F4A7C15) & MASK64
-        z = state
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MASK64
-        yield z ^ (z >> 31)
+SPLITMIX_GAMMA = 0x9E3779B97F4A7C15
+
+
+def _splitmix_words(count: int) -> np.ndarray:
+    """The first ``count`` outputs of splitmix64 seeded with SEED, as uint64:
+    output k mixes the state SEED + (k + 1) * gamma mod 2^64, so the whole
+    stream is computed at once (numpy's uint64 products wrap mod 2^64)."""
+    z = np.uint64(SEED) + np.arange(1, count + 1, dtype=np.uint64) * np.uint64(SPLITMIX_GAMMA)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _det_values(count: int) -> list:
+    """The fixture's first ``count`` field values: each four splitmix64
+    words, least significant first, the top word cut to 61 bits (< 2^253)."""
+    words = _splitmix_words(4 * count).reshape(count, 4)
+    words[:, 3] &= np.uint64(0x1FFFFFFFFFFFFFFF)
+    raw = memoryview(words.astype("<u8").tobytes())
+    return [int.from_bytes(raw[32 * k : 32 * k + 32], "little") for k in range(count)]
 
 
 def crosscheck_prover(srs, n: int = 16, with_bool: bool = False) -> Prover:
-    """The fixture circuit's prover on the SRS's device."""
-    gen = _splitmix_stream(SEED)
+    """The fixture circuit's prover on the SRS's device. Row pair i < n / 4
+    takes the fixture's values 5i .. 5i + 4: w_l and w_r of the mul+add gate
+    2i, then w_l, w_r and w_o of the random gate 2i + 1."""
+    half = n // 2
+    d = _det_values(5 * (n // 4))
+    wl_e, wr_e, wl_o, wr_o, wo_o = (d[j::5] for j in range(5))
+    w_l, w_r, w_o = [0] * n, [0] * n, [0] * n
+    q_m, q_l, q_r, q_o, q_c = [0] * n, [0] * n, [0] * n, [0] * n, [0] * n
+    even, odd = slice(0, half, 2), slice(1, half, 2)
+    w_l[even], w_r[even] = wl_e, wr_e
+    w_o[even] = [(a * b + a + b + 1) % P for a, b in zip(wl_e, wr_e)]
+    for q in (q_l, q_r, q_m, q_c):
+        q[even] = [1] * len(wl_e)
+    q_o[even] = [P - 1] * len(wl_e)
+    w_l[odd], w_r[odd], w_o[odd] = wl_o, wr_o, wo_o
+    q_c[odd] = [(-(a + b + c)) % P for a, b, c in zip(wl_o, wr_o, wo_o)]
+    for q in (q_l, q_r, q_o):
+        q[odd] = [1] * len(wl_o)
 
-    def det():
-        w = [next(gen) for _ in range(4)]
-        w[3] &= 0x1FFFFFFFFFFFFFFF
-        return w[0] | (w[1] << 64) | (w[2] << 128) | (w[3] << 192)
-
-    w_l = [0] * n
-    w_r = [0] * n
-    w_o = [0] * n
-    q_m = [0] * n
-    q_l = [0] * n
-    q_r = [0] * n
-    q_o = [0] * n
-    q_c = [0] * n
-    for i in range(n // 4):
-        w_l[2 * i] = det()
-        w_r[2 * i] = det()
-        w_o[2 * i] = (w_l[2 * i] * w_r[2 * i] + w_l[2 * i] + w_r[2 * i] + 1) % P
-        q_l[2 * i] = q_r[2 * i] = q_m[2 * i] = q_c[2 * i] = 1
-        q_o[2 * i] = P - 1
-        w_l[2 * i + 1] = det()
-        w_r[2 * i + 1] = det()
-        w_o[2 * i + 1] = det()
-        q_c[2 * i + 1] = (-(w_l[2 * i + 1] + w_r[2 * i + 1] + w_o[2 * i + 1])) % P
-        q_l[2 * i + 1] = q_r[2 * i + 1] = q_o[2 * i + 1] = 1
-
-    shift = n // 2
+    shift = half
     for arr in (w_l, w_r, w_o, q_m, q_l, q_r, q_o, q_c):
         arr[shift:] = arr[:shift]
 
-    s1 = np.zeros(n, dtype=np.uint32)
-    s2 = np.zeros(n, dtype=np.uint32)
-    s3 = np.zeros(n, dtype=np.uint32)
-    for i in range(shift):
-        s1[shift + i] = i
-        s2[shift + i] = i + (1 << 30)
-        s3[shift + i] = i + (1 << 31)
-        s1[i] = i + shift
-        s2[i] = i + shift + (1 << 30)
-        s3[i] = i + shift + (1 << 31)
+    rows = np.arange(shift, dtype=np.uint32)
+    s1 = np.concatenate([rows + shift, rows])
     for j in (shift - 1, n - 1):
         s1[j] = j
-        s2[j] = j + (1 << 30)
-        s3[j] = j + (1 << 31)
         w_l[j] = w_r[j] = w_o[j] = 0
         q_c[j] = 0
+    s2 = s1 + np.uint32(1 << 30)
+    s3 = s1 + np.uint32(1 << 31)
     q_l[n - 1] = q_r[n - 1] = q_o[n - 1] = q_m[n - 1] = 0
 
     prover = Prover(n, srs)

@@ -138,7 +138,7 @@ _SIGNATURES = {
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
         "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 4 + [_VP, _VP],
         "bb_wide_max_clusters": [_I, _VP],
-        "bb_window_combine": [_VP] * 8 + [_I, _I, _VP, _VP],
+        "bb_window_combine": [_VP] * 8 + [_I, _I, _I, _VP, _VP],
         "bb_glv_digits": [_VP, _VP, _I, _I, _I, _L, _VP, _VP, _VP],
     },
 }

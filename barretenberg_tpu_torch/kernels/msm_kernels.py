@@ -1,9 +1,10 @@
 """K3a ``bucket_accumulate`` and K3b ``bucket_reduce``: the bucket phase of
 Pippenger's MSM for every round at once, one launch each per MSM; K3b-wide
-``bucket_reduce_wide``: K3b's function for bucket sets too large for one
-CTA (the precomputed-table MSM's, all rounds in one set); K3c
-``window_combine``: the Horner combine of the rounds' window sums, one
-launch per MSM.
+``bucket_reduce_wide``: K3b's function spread over clusters of CTAs, for
+bucket sets too large for one CTA (the precomputed-table MSM's, all rounds
+in one set) and for the rounds-batched MSM's rounds, one set each, in place
+of K3b; K3c ``window_combine``: the Horner combine of the rounds' window
+sums, one thread per MSM, the MSMs of a commit call in one launch.
 
 Replace the two scans of the JAX package's per-round Pippenger whose bodies
 are its Pallas point kernel (``kernels/point_kernels.py:179``
@@ -60,6 +61,10 @@ runs K3b's two suffix scans over its buckets, each level's lanes cut evenly
 over its CTAs. By default the ranges are sized so that all sets' clusters
 are resident at once, as many as CUDA's occupancy query says the card
 holds (``wide_range_buckets``). B commitments are B sets of one launch.
+The rounds-batched MSM of B scalar vectors hands it its B x R rounds as
+B x R sets (K3b's function on each: the same window sums, coordinate for
+coordinate); at n = 2^20 (c = 13) one CTA per round, as K3b runs them,
+would leave 121 of 132 SMs idle through ~1,600 dependent adds a thread.
 
 K4 ``glv_digits`` replaces the GLV split and signed digits that the JAX
 package runs inside its jitted Pippenger (``msm/wnaf.py:73-97``
@@ -78,14 +83,14 @@ steps ``csrc/field.cuh``'s - and stores each round's digits of k1 and k2
 coalesced in the table's entry order, so a commit call's (B, m) digits are
 one launch.
 
-K3c is bound by neither bytes nor instruction rate: its 140 doublings and 14 adds
-(c = 10, 14 rounds) are one dependent chain of ~1,200 Montgomery products,
+K3c is bound by neither bytes nor instruction rate: its 143 doublings and 11 adds
+(c = 13, 11 rounds) are one dependent chain of ~1,200 Montgomery products,
 and grouping the sums any other way would change the Jacobian coordinates.
-What the design does about it: one thread runs the whole chain - each
+What the design does about it: one thread runs a whole chain - each
 round's doublings and add in registers, the running sum stored and reloaded
-once per round - so the MSM's combine is one launch where it was c + 1
-single-lane launches per round (154 host round trips at 2^16 points); its
-device time stays that of the chain.
+once per round - and the B MSMs of a commit call are B threads of one
+launch, where the JAX package runs c + 1 point-kernel calls per round and
+MSM; the launch's device time stays that of one chain.
 
 Every point operation is the plain version's, on the same lanes in the same
 order, so the Jacobian coordinates are equal limb for limb (and to the JAX
@@ -172,7 +177,9 @@ def accumulate_block(entries: int, capacity: int) -> int:
 def wide_range_buckets(nbuckets: int, sets: int, device) -> int:
     """K3b-wide's default buckets per cluster: the fewest that give every set
     the same number of ranges and all sets' clusters at most
-    ``wide_max_clusters``, so that they run in one wave."""
+    ``wide_max_clusters``, so that they run in one wave; with more sets
+    than that (a rounds-batched commit call's B x R rounds), one range a
+    set, in waves."""
     per_set = max(1, wide_max_clusters(nbuckets, device) // sets)
     return -(-nbuckets // per_set)
 
@@ -439,17 +446,20 @@ def plain_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.
     return torch.nn.functional.pad(digits, (0, m - digits.shape[1]))
 
 
-def plain_window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
-    """sum_r 2^(c r) W_r by Horner's rule, most significant window first: c
-    doublings then one add per round, starting from infinity with zero
-    coordinates. windows: (18, R) batch, lane r = round r. Returns (1,)."""
-    rounds, dev = windows.inf.shape[0], windows.x.device
-    zero = torch.zeros((L, 1), dtype=torch.int32, device=dev)
-    acc = JacobianPoints(zero, zero, zero, torch.ones(1, dtype=torch.bool, device=dev))
+def plain_window_combine(windows: JacobianPoints, c: int, sets: int = 1) -> JacobianPoints:
+    """Each of ``sets`` MSMs' sum_r 2^(c r) W_r by Horner's rule, most
+    significant window first: c doublings then one add per round, starting
+    from infinity with zero coordinates, the MSMs side by side as lanes.
+    windows: (18, sets * R) batch, lane s * R + r = MSM s's round r.
+    Returns (sets,)."""
+    rounds, dev = windows.inf.shape[0] // sets, windows.x.device
+    zero = torch.zeros((L, sets), dtype=torch.int32, device=dev)
+    acc = JacobianPoints(zero, zero, zero, torch.ones(sets, dtype=torch.bool, device=dev))
+    first = torch.arange(sets, device=dev) * rounds
     for r in reversed(range(rounds)):
         for _ in range(c):
             acc = plain_dbl(acc)
-        win = JacobianPoints(*(t[..., r : r + 1] for t in windows))
+        win = JacobianPoints(*(t[..., first + r] for t in windows))
         acc = plain_add(acc, win)
     return acc
 
@@ -557,21 +567,21 @@ def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int, l
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
-def _launch_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
+def _launch_combine(windows: JacobianPoints, c: int, sets: int) -> JacobianPoints:
     dev = windows.x.device
     if not windows.x.is_cuda:
         raise ValueError("window_combine kernel takes CUDA tensors")
-    rounds = windows.inf.shape[0]
-    x, y, z = (_check(t, (L, rounds), torch.int32, dev) for t in windows[:3])
-    inf = _check(windows.inf, (rounds,), torch.bool, dev).view(torch.uint8)
-    ox, oy, oz = (torch.empty((L, 1), dtype=torch.int32, device=dev) for _ in range(3))
-    oinf = torch.empty(1, dtype=torch.uint8, device=dev)
+    lanes = windows.inf.shape[0]
+    x, y, z = (_check(t, (L, lanes), torch.int32, dev) for t in windows[:3])
+    inf = _check(windows.inf, (lanes,), torch.bool, dev).view(torch.uint8)
+    ox, oy, oz = (torch.empty((L, sets), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.empty(sets, dtype=torch.uint8, device=dev)
     lib = build.get_lib("msm_kernels")
     with torch.cuda.device(dev):
         err = lib.bb_window_combine(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
             ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
-            rounds, c, build.field_consts(FQ_PARAMS), build.current_stream(),
+            sets, lanes // sets, c, build.field_consts(FQ_PARAMS), build.current_stream(),
         )
     build.check(err, "window_combine")
     launch_counts["window_combine"] += 1
@@ -643,8 +653,11 @@ def bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | N
     return plain_bucket_reduce_wide(partials, nbuckets, range_buckets)
 
 
-def window_combine(windows: JacobianPoints, c: int) -> JacobianPoints:
-    """K3c: the rounds' window sums (18, R) -> the MSM, sum_r 2^(c r) W_r, (1,)."""
+def window_combine(windows: JacobianPoints, c: int, sets: int = 1) -> JacobianPoints:
+    """K3c: the window sums of ``sets`` MSMs (18, sets * R), lane s * R + r
+    = MSM s's round r -> each MSM, sum_r 2^(c r) W_r, (sets,): one launch."""
+    if sets < 1 or windows.inf.shape[0] % sets:
+        raise ValueError(f"window_combine: {windows.inf.shape[0]} windows in {sets} sets")
     if windows.x.is_cuda:
-        return _launch_combine(windows, c)
-    return plain_window_combine(windows, c)
+        return _launch_combine(windows, c, sets)
+    return plain_window_combine(windows, c, sets)

@@ -4,6 +4,7 @@ from .pippenger import (
     generate_pippenger_point_table,
     optimal_window,
     pippenger,
+    pippenger_batch,
     pippenger_low_memory,
     pippenger_precomputed,
     pippenger_precomputed_batch,
@@ -20,6 +21,7 @@ __all__ = [
     "naive_msm",
     "optimal_window",
     "pippenger",
+    "pippenger_batch",
     "pippenger_low_memory",
     "pippenger_precomputed",
     "pippenger_precomputed_batch",

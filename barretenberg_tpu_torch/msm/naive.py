@@ -14,8 +14,7 @@ from ..fields import fr as _fr
 from ..fields.params import LIMB_BITS
 from ..groups import AffinePoints, JacobianPoints
 from ..groups.g1 import g1 as _g1
-from ..groups.group import cat_jacobian
-from .pippenger import SCALAR_BITS, pippenger
+from .pippenger import SCALAR_BITS, pippenger, pippenger_batch
 
 MSM_PIPPENGER_THRESHOLD = 4096
 
@@ -50,11 +49,13 @@ def batched_msm(scalars_list, points: AffinePoints) -> JacobianPoints:
     """B MSMs over the same point set (the prover commits wire/quotient
     groups together). Small sizes run as ONE double-and-add over B*n lanes
     (lane l takes point l % n) and a per-group tree reduction; large sizes
-    run Pippenger per group. Returns a (B,) JacobianPoints batch."""
+    as ONE rounds-batched Pippenger schedule over all B (each group's result
+    the JAX package's per-group non-fused ``pippenger``). Returns a (B,)
+    JacobianPoints batch."""
     b = len(scalars_list)
     n = scalars_list[0].shape[1]
     if n >= MSM_PIPPENGER_THRESHOLD:
-        return cat_jacobian([pippenger(s, points) for s in scalars_list])
+        return pippenger_batch(list(scalars_list), points)
     g1 = _g1(points.x.device)
     per_point = g1.scalar_mul_bits(points, scalar_bits(torch.cat(list(scalars_list), dim=1)))
     return g1.tree_sum(per_point, groups=b)

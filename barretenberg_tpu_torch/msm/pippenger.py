@@ -5,10 +5,11 @@ bucket-ordered design of its pippenger.md) laid out for a machine with wide
 lanes and no scatter-accumulate:
 
   0. every scalar is GLV-split on the device into two 128-bit halves
-     (msm/wnaf.py) and every point is paired with its endomorphism image
-     (beta*x, -y); digits are signed c-bit windows, so a round has 2^(c-1)
-     buckets and there are ceil(128/c)+1 rounds over 2N entries;
-  for all rounds at once:
+     and its signed digits taken (K4 glv_digits); every point is paired
+     with its endomorphism image (beta*x, -y); digits are signed c-bit
+     windows, so a round has 2^(c-1) buckets and there are ceil(128/c)+1
+     rounds over 2N entries;
+  for all rounds of all B MSMs of a call at once:
     1. one batched stable sort of each round's entries by bucket =
        |digit| - 1 (kernels/msm_kernels.py::sort_rounds); an entry with a
        negative digit adds -P;
@@ -17,17 +18,21 @@ lanes and no scatter-accumulate:
        call so that the walks fill the card), and one thread per (round,
        block) walks its block,
        summing runs of equal buckets with mixed adds; runs that span block
-       boundaries emit partial sums, compacted per round;
-    3. K3b bucket_reduce: one CTA per round merges each bucket's partials
-       with a Kogge-Stone segmented scan (log depth), scatters the bucket
-       sums S_m and turns them into the window sum sum_m (m+1) S_m with
-       two suffix scans;
-  4. K3c window_combine: the windows combine MSB-first, c doublings and
-     one add per round (the Horner chain), on one thread in one launch.
+       boundaries emit partial sums, compacted per round; all B x R rounds
+       walk one point table of 2N rows;
+    3. K3b-wide bucket_reduce_wide, each round one bucket set: clusters of
+       CTAs merge each bucket's partials (the segmented scan's sums),
+       scatter the bucket sums S_m and turn them into the window sum
+       sum_m (m+1) S_m with two suffix scans (K3b, one CTA per round, is
+       the same function);
+  4. K3c window_combine: each MSM's windows combine MSB-first, c doublings
+     and one add per round (the Horner chain), one thread per MSM in one
+     launch.
 
-The rounds are independent until step 4, so batching them changes no
-coordinate: each round's window is the JAX package's per-round
-`_accumulate_window` limb for limb.
+The rounds, and the MSMs, are independent until step 4, so batching them
+changes no coordinate: each round's window is the JAX package's per-round
+`_accumulate_window` limb for limb, and each MSM the JAX package's
+non-fused `pippenger` of its scalar vector.
 
 The precomputed-table schedule (`pippenger_precomputed`, the JAX package's
 `msm/pippenger.py:431-534`) commits against a fixed point set through a
@@ -76,15 +81,17 @@ def optimal_window(n: int) -> int:
     return 13
 
 
-def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int):
+def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int, sets: int = 1):
     """The MSM's bucket entries: GLV split + endo point table,
-    k*P = k1*P + k2*(beta*x, -y). Returns signed digits (R, M) int32, the
-    entries' affine coordinates px, py (18, M) and pinf (M,), with M = 2N
-    padded to a multiple of `block` by dead entries."""
+    k*P = k1*P + k2*(beta*x, -y). ``scalars_mont``: (18, sets * N), the
+    ``sets`` scalar vectors of one call side by side, over one point set of
+    N. Returns signed digits (sets * R, M) int32 (row s * R + r: vector s's
+    round r), the entries' affine coordinates px, py (18, M) and pinf (M,),
+    with M = 2N padded to a multiple of `block` by dead entries."""
     fq = _fq(scalars_mont.device)
-    n = scalars_mont.shape[1]
+    n = points.x.shape[1]
     rounds = msm_kernels.digit_rounds(c)
-    digits = msm_kernels.glv_digits(scalars_mont, 1, c, rounds * 2 * n).reshape(rounds, 2 * n)
+    digits = msm_kernels.glv_digits(scalars_mont, sets, c, rounds * 2 * n).reshape(sets * rounds, 2 * n)
     beta_x = fq.mul_by_constant(points.x, fq.params.cube_root)
     px = torch.cat([points.x, beta_x], dim=1)
     py = torch.cat([points.y, fq.neg(points.y)], dim=1)
@@ -99,14 +106,35 @@ def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block:
 
 
 def _pippenger_impl(
-    scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int
+    scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int, sets: int = 1
 ) -> JacobianPoints:
-    digits, px, py, pinf = glv_entries(scalars_mont, points, c, block)
+    """``sets`` MSMs over one point set (scalars (18, sets * N)) as one
+    launch set: K4, one sort, K3a, K3b-wide, K3c. Returns (sets,)."""
+    digits, px, py, pinf = glv_entries(scalars_mont, points, c, block, sets)
     nbuckets = 1 << (c - 1)
     entries = msm_kernels.sort_rounds(digits, nbuckets)
     partials = msm_kernels.bucket_accumulate(entries, px, py, pinf, nbuckets, block)
-    windows = msm_kernels.bucket_reduce(partials, nbuckets)  # lane r: round r's window
-    return msm_kernels.window_combine(windows, c)
+    windows = msm_kernels.bucket_reduce_wide(partials, nbuckets)  # lane s * R + r: MSM s's round r
+    return msm_kernels.window_combine(windows, c, sets)
+
+
+def pippenger_batch(
+    scalars_list,
+    points: AffinePoints,
+    c: int | None = None,
+    block: int = 128,
+) -> JacobianPoints:
+    """B MSMs over one point set, sum_i scalars_b[i] * points[i] for each of
+    the B (18, N) scalar vectors, as one rounds-batched schedule: one K4,
+    one sort, one K3a, one K3b-wide and one K3c launch for all B. Returns a
+    (B,) JacobianPoints batch, each the JAX package's non-fused
+    ``pippenger`` of its vector, coordinate for coordinate."""
+    n = scalars_list[0].shape[1]
+    if c is None:
+        c = optimal_window(n)
+    block = min(block, max(16, 2 * n))
+    scalars = scalars_list[0] if len(scalars_list) == 1 else torch.cat(list(scalars_list), dim=1)
+    return _pippenger_impl(scalars, points, c, block, len(scalars_list))
 
 
 def pippenger(
@@ -119,11 +147,7 @@ def pippenger(
 
     scalars_mont: (18, N) internal-Montgomery Fr values. points: affine
     batch (N). Runs on the device the tensors lie on."""
-    n = scalars_mont.shape[1]
-    if c is None:
-        c = optimal_window(n)
-    block = min(block, max(16, 2 * n))
-    return _pippenger_impl(scalars_mont, points, c, block)
+    return pippenger_batch([scalars_mont], points, c, block)
 
 
 class PippengerPointTable:

@@ -121,14 +121,15 @@ class ReferenceString:
         The tau powers are host ints (cheap); the degree generator
         multiplications run via the fixed-base window table
         (groups/g1.fixed_base_mul): 32 gather + mixed-add steps over all
-        lanes, no doublings."""
+        lanes, no doublings, one K3e launch on the card; then one batched
+        normalisation of all of them (one K1 pow and two K1 scans)."""
         dev = resolve_device(device)
         tau = secret % FR_MODULUS
         powers = [1] * degree
         for i in range(1, degree):
             powers[i] = powers[i - 1] * tau % FR_MODULUS
         mono_jac = fixed_base_mul(powers, dev)
-        monomials = _g1(dev).batch_normalize_chunked(mono_jac)
+        monomials = _g1(dev).batch_normalize(mono_jac)
         g2_x = host_curve.g2_mul(host_curve.G2_GENERATOR, tau)
         return ReferenceString(monomials, g2_x, degree)
 

@@ -21,11 +21,16 @@ and at c = 13, K3b-wide also on one-bucket sets
 and at the small shape on a sparse set against the host oracle, the main
 MSM through pippenger() and pippenger_precomputed(), and K4 glv_digits (the
 GLV split and signed digits) on edge scalars, also against the host oracle,
-and on 3 x 2^16 scalars at c = 8, 10 and 13 -
+and on 3 x 2^16 scalars at c = 8, 10 and 13, the rounds-batched MSM of
+the 2^20 prove (c = 13): K3b-wide over its rounds as bucket sets and K3b
+over 1 and 3 vectors' rounds at 2^16 and 2^20 points (both timed there,
+K3b-wide the faster, on the path), K3c over 1, 2 and 3 chains, also
+against the host oracle -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
-against the K2 stage-by-stage path,
+against the K2 stage-by-stage path, and at 2^19-2^22 (4-pass plans), K1
+scan at 2^20,
 reproduces the pinned n = 16 proof digest on the card (every commitment a
 naive MSM), proves and verifies n = 2^11 gates, checks a Pippenger MSM
 against the host oracle, and then drives the main path at n = 2^16 gates:
@@ -38,8 +43,8 @@ generation + proof ("small"), SRS generation at 2^16 (one K3e launch), and
 the 2^16 preprocess + prove + verify - and the run fails if any kernel of
 the path was never launched in them (the lane-wise point dbl and
 mixed_add, which K3d and K3e replace, K2's stage kernel, which K2b
-replaces, and the per-round K3b and Horner combine K3c, which the table
-replaces on the prover's path, are exempt), if any window runs a lane-wise
+replaces, and K3b, whose function K3b-wide computes on the path, are
+exempt; checked after the last window), if any window runs a lane-wise
 dbl or mixed_add, a K3d launch other than one per naive MSM, a K3e launch
 other than one per SRS generation, K4 / K3a / K3b-wide other than once per
 commitment call through the table, any per-round K3b, Horner combine,
@@ -61,7 +66,15 @@ cross-implementation fixture bool_n256 to CROSSCHECK.json's SHA-256; it
 fails if a circuit's launches are not one K4, K3a and K3b-wide per commit
 call, one K1 scan per scan, pow per batch inversion, dot per batch of
 evaluations, lincomb per linear combination, or exceed the mul / add
-ceilings of its widgets' chains. Each
+ceilings of its widgets' chains. Then phase "large" (counted window
+"large") proves at the reference's own size: test_srs(2^20) generated on
+the card, the crosscheck fixture at n = 2^20 gates and its verifier key;
+the proof's SHA-256 must be CROSSCHECK.json's arithmetic_2e20 (the
+reference C++ prover's bytes), it must verify and a tampered copy must
+not, and each of the 6 commit calls must be one rounds-batched Pippenger
+launch set (one K4, K3a, K3b-wide and K3c; no K3b, K3f, K3d) with the
+pass plans' K2b launches; it prints the seconds of each step and the
+peak device memory. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
 
@@ -85,7 +98,13 @@ import torch
 
 from barretenberg_tpu_torch import convert
 from barretenberg_tpu_torch.composer import StandardComposer
-from barretenberg_tpu_torch.fixtures import BENCH_DIGESTS, CROSSCHECK_SHA256, bench_circuit, crosscheck_prover
+from barretenberg_tpu_torch.fixtures import (
+    BENCH_DIGESTS,
+    CROSSCHECK_2E20_SHA256,
+    CROSSCHECK_SHA256,
+    bench_circuit,
+    crosscheck_prover,
+)
 from barretenberg_tpu_torch.fields import fq as get_fq, fr as get_fr
 from barretenberg_tpu_torch.fields.glv import split_into_endomorphism_scalars
 from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
@@ -107,7 +126,7 @@ from barretenberg_tpu_torch.msm import (
     pippenger,
     pippenger_precomputed,
 )
-from barretenberg_tpu_torch.msm.naive import scalar_bits
+from barretenberg_tpu_torch.msm.naive import MSM_PIPPENGER_THRESHOLD, scalar_bits
 from barretenberg_tpu_torch.msm import wnaf
 from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
 from barretenberg_tpu_torch.plonk import preprocess
@@ -137,6 +156,16 @@ POINT_BYTES = {"dbl": 6 * ELEM_BYTES, "add": 9 * ELEM_BYTES + 3, "mixed_add": 8 
 JAC_BYTES = 3 * ELEM_BYTES + 1  # a Jacobian point with its infinity byte
 ROW_WORDS = point_kernels.ROW_WORDS  # one point-table row (K3a, K3e)
 MSM_BLOCK = 128  # pippenger's default block
+# The reference's own size: its SRS holds 2^20 points and CROSSCHECK.json
+# pins its prover's proof of the crosscheck fixture at 2^20 gates. There the
+# prover commits through the rounds-batched Pippenger at c = 13 (11 rounds a
+# vector), and the quotient runs transforms up to 4n = 2^22.
+LARGE_LOG2N = 20
+LARGE_C = 13
+# K2b's 4-pass plans: the sizes held on the card, and the transform the
+# 2^20 prove runs most at each (iFFTs at n, coset FFTs with the alpha
+# constant at 2n, coset FFTs at 4n)
+LARGE_FFT = {19: "ifft", 20: "ifft", 21: "coset_fft_with_constant", 22: "coset_fft"}
 
 REPLACES = {
     "field": "barretenberg_tpu/kernels/field_kernels.py:64",
@@ -1374,6 +1403,161 @@ def check_glv_digits(device, log2n: int, rng, records: list) -> None:
     })
 
 
+def random_points(device, n: int, rng) -> AffinePoints:
+    """n random affine points [k]G, k below 2^248, drawn on the device: one
+    K3e launch on random window digits and one batched normalisation."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
+    digits = torch.randint(0, 256, (32, n), generator=gen, device=device, dtype=torch.uint8)
+    digits[31] = 0
+    return get_g1(device).batch_normalize(point_kernels.fixed_base(digits, fixed_base_table(device)))
+
+
+def check_rounds_msm(device, log2n_check: int, log2n_path: int, c: int, rng, records: list) -> None:
+    """The rounds-batched MSM at the 2^20 prove's shapes (c = 13, 11 rounds
+    a vector; commit calls of 1 and 3 vectors), on random points drawn on
+    the card: K3a over the 3-vector call's rounds against its plain version
+    over 2^log2n_check points, timed there and over the path's
+    2^log2n_path points; K3b-wide over the rounds as bucket sets, and K3b,
+    against their plain version (exact) over both, both kernels timed over
+    the path's points; then K3c over B = 1, 2, 3 chains of the 3-vector
+    call's windows against its plain version (exact) and the host oracle."""
+    nb = 1 << (c - 1)
+    windows = acc = None
+    for log2n in (log2n_check, log2n_path):
+        pts = random_points(device, 1 << log2n, rng)
+        for sets in (1, 3):
+            digits, px, py, pinf = glv_entries(rand_lanes((sets << log2n,), device, rng), pts, c, MSM_BLOCK, sets)
+            entries = msm_kernels.sort_rounds(digits, nb)
+            partials = msm_kernels.bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+            cd = partials.bucket
+            nsets, k = cd.shape
+            m = entries.order.shape[1]
+            partial_bytes = nsets * k * (JAC_BYTES + 4)
+            if sets == 3:
+                run = lambda: msm_kernels.bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK)
+                b_ms, b_by = bound(nsets * m * 4 + m * (2 * ELEM_BYTES + 1) + partial_bytes,
+                                   accumulate_madds(entries, pinf, nb, MSM_BLOCK) * POINT_MULS["mixed_add"]
+                                   * IMAD_PER_FIELD_MUL)
+                if log2n == log2n_check:
+                    want, plain_ms = timed_once(
+                        lambda: msm_kernels.plain_bucket_accumulate(entries, px, py, pinf, nb, MSM_BLOCK), device)
+                    err = max(int((cd - want.bucket).abs().max()), max_abs_err(partials.points, want.points))
+                    if err:
+                        fail("kernels", f"bucket_accumulate disagrees with its plain version at {nsets} x {m} entries")
+                    acc = {"name": "bucket_accumulate", "module": "msm", "op": "bucket_accumulate", "route": "cuda",
+                           "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu",
+                           "replaces": REPLACES["bucket_accumulate"], "shape": [nsets, m, MSM_BLOCK],
+                           "path": f"rounds-batched MSM, 3 x 2^{log2n} points, c = {c}", "max_abs_err": err,
+                           "ms": time_ms(run, device, 5), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": None}
+                else:
+                    acc.update(path_shape=[nsets, m, MSM_BLOCK], path_ms=time_ms(run, device, 3), path_bound_ms=b_ms)
+                    records.append(acc)
+            wide = msm_kernels.bucket_reduce_wide(partials, nb)
+            k3b = msm_kernels.bucket_reduce(partials, nb)
+            want, plain_ms = timed_once(lambda: msm_kernels.plain_bucket_reduce(partials, nb), device)
+            errs = {}
+            for name, got in (("bucket_reduce_wide", wide), ("bucket_reduce", k3b)):
+                errs[name] = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+                if errs[name]:
+                    fail("kernels", f"{name} disagrees with its plain version at {sets} x "
+                                    f"{msm_kernels.digit_rounds(c)} rounds over 2^{log2n} points")
+            if log2n != log2n_path:
+                continue
+            nbytes = partial_bytes + nsets * JAC_BYTES
+            adds = {"bucket_reduce_wide": wide_adds(cd, nb), "bucket_reduce": reduce_adds(cd, nb)}
+            for name, fn in (("bucket_reduce_wide", msm_kernels.bucket_reduce_wide),
+                             ("bucket_reduce", msm_kernels.bucket_reduce)):
+                b_ms, b_by = bound(nbytes, adds[name] * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)
+                records.append({
+                    "name": name, "module": "msm", "op": name, "route": "cuda",
+                    "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES[name],
+                    "shape": [nsets, k, nb], "path": f"rounds-batched MSM, {sets} x 2^{log2n} points, c = {c}",
+                    "max_abs_err": errs[name], "ms": time_ms(lambda: fn(partials, nb), device, 5),
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                })
+            if sets == 3:
+                windows = wide
+    check_combine_sets(device, windows, c, records)
+
+
+def check_combine_sets(device, win: JacobianPoints, c: int, records: list) -> None:
+    """K3c over B = 1, 2, 3 chains (one thread each, one launch) of a
+    commit call's windows (18, B x R) against its plain version (exact),
+    and each chain against the host oracle sum_r 2^(c r) W_r."""
+    rounds = msm_kernels.digit_rounds(c)
+    host = jacobian_to_host(win)
+    for sets in (1, 2, 3):
+        w = JacobianPoints(*(t[..., : sets * rounds].contiguous() for t in win))
+        got, want = msm_kernels.window_combine(w, c, sets), msm_kernels.plain_window_combine(w, c, sets)
+        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if err:
+            fail("kernels", f"window_combine over {sets} chains disagrees with its plain version")
+        if jacobian_to_host(got) != [horner_oracle(host[s * rounds : (s + 1) * rounds], c) for s in range(sets)]:
+            fail("kernels", f"window_combine over {sets} chains disagrees with the host oracle")
+        b_ms, b_by = bound((sets * rounds + sets) * JAC_BYTES,
+                           sets * rounds * (c * POINT_MULS["dbl"] + POINT_MULS["add"]) * IMAD_PER_FIELD_MUL)
+        ms = time_ms(lambda: msm_kernels.window_combine(w, c, sets), device, 20)
+        records.append({
+            "name": "window_combine", "module": "msm", "op": "window_combine", "route": "cuda",
+            "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["window_combine"],
+            "shape": [18, sets * rounds], "sets": sets, "c": c, "steps": rounds * (c + 1), "max_abs_err": err,
+            "ms": ms, "ms_per_step": ms / (rounds * (c + 1)),
+            "plain_ms": time_ms(lambda: msm_kernels.plain_window_combine(w, c, sets), device, 1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+
+
+def check_fft_pass_large(device, sizes: tuple, rng, records: list) -> None:
+    """K2b's 4-pass plans (2^19 to 2^22 with the default tile) against its
+    plain version (exact), all seven public transforms once each on random
+    elements with 0, 1 and p - 1 in front, in fresh domains; one timing
+    record per size, of the transform the 2^20 prove runs most there."""
+    field = get_fr(device)
+    edge = field.encode([0, 1, field.p - 1])
+    for k in sizes:
+        d = EvaluationDomain(1 << k, device)
+        x = rand_lanes((1 << k,), device, rng)
+        x[:, :3] = edge
+        plan = fft.fft_plan(k)
+        timed = LARGE_FFT.get(k, "ifft")
+        for name, (inv, coset, val) in FFT_VARIANTS.items():
+            got = fft.transform(x, d, inv, coset, val, plan)
+            want, plain_ms = timed_once(lambda: fft.transform(x, d, inv, coset, val, plan, butterfly.plain_fft_pass),
+                                        device)
+            err = max_abs_err([got], [want])
+            if err:
+                fail("kernels", f"fft_pass {name} at n=2^{k}, plan {plan}, disagrees with its plain version")
+            if name != timed:
+                continue
+            b_ms, b_by = fft_bound(k, inv, coset, val)
+            records.append({
+                "name": "fft_pass", "module": "butterfly", "op": "pass", "route": "cuda",
+                "source": "barretenberg_tpu_torch/csrc/butterfly.cu", "replaces": REPLACES["fft_pass"],
+                "shape": [18, 1 << k], "transform": name, "passes": plan, "max_abs_err": err,
+                "ms": time_ms(lambda: fft.transform(x, d, inv, coset, val), device, 10),
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+
+
+def check_scans_large(device, n: int, rng) -> None:
+    """K1 scan at the 2^20 prove's width against its plain version (exact):
+    the prefix product with a zero in the middle over Fr (the grand
+    product) and Fq (the SRS's batch normalisation), and the affine
+    recurrence with a broadcast m over Fr (the Kate division)."""
+    for params, get in ((FR_PARAMS, get_fr), (FQ_PARAMS, get_fq)):
+        field = get(device)
+        a = rand_lanes((n,), device, rng)
+        a[:, n // 2] = 0
+        if not torch.equal(field.prefix_product(a, 1), field_kernels.plain_prefix_product(params, a, 1)):
+            fail("kernels", f"field scan (product) over {params.name} at {n} lanes disagrees with its plain version")
+    fr = get_fr(device)
+    b, m = rand_lanes((n,), device, rng), rand_lanes((1,), device, rng)
+    if not torch.equal(fr.affine_scan(m, b, 1),
+                       field_kernels.plain_affine_scan(FR_PARAMS, *torch.broadcast_tensors(m, b), 1)):
+        fail("kernels", f"field scan (affine) over Fr at {n} lanes disagrees with its plain version")
+
+
 # ---------------------------------------------------------------------------
 COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
 
@@ -1391,12 +1575,10 @@ COMMIT_CALLS = 6
 # the five selectors.
 COMMIT_SETS = (1, 2, 3, 5)
 # Lane-wise point kernels that run on no main path since K3d and K3e, K2's
-# stage kernel, off the path since K2b, and the rounds-batched Pippenger's
-# per-round K3b and Horner combine K3c, off the prover's path since it
-# commits through the precomputed table (the kernels phase still holds each
-# against its plain version).
-OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"),
-            ("msm", "bucket_reduce"), ("msm", "window_combine")}
+# stage kernel, off the path since K2b, and K3b, one CTA a round, whose
+# function K3b-wide computes on the rounds-batched Pippenger's path (the
+# kernels phase still holds each against its plain version).
+OFF_PATH = {("point", "dbl"), ("point", "mixed_add"), ("butterfly", "stage"), ("msm", "bucket_reduce")}
 # K1 scan launches per window, one per scan the window runs: two per batch
 # inversion (each batch normalisation of SRS generation, of the precomputed
 # table and of the six commit calls' results; the grand product's
@@ -1538,35 +1720,48 @@ def circuit_builds(prover, generations_before: int) -> dict:
                                  for k, names in DOMAIN_TABLES.items() for name in names)}
 
 
+def commit_route(n: int) -> str:
+    """The prover's commitment schedule at n gates, the JAX prover's: the
+    SRS's precomputed table from 2^10 to 2^18 gates ("table"), else the
+    rounds-batched Pippenger from MSM_PIPPENGER_THRESHOLD points ("rounds")
+    and the naive double-and-add below ("naive")."""
+    if Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N:
+        return "table"
+    return "rounds" if n >= MSM_PIPPENGER_THRESHOLD else "naive"
+
+
 def circuit_faults(counts: dict, widgets: list, commit_calls: int, n: int, builds: dict) -> list:
-    """A circuit's launches: one K4, K3a and K3b-wide per commit call from
-    2^10 gates (one K3d per call below), one K3f per table and one K3e per
-    SRS built; one K1 scan per scan (two per batch inversion - each batch
-    normalisation of points, the grand product's denominators, the Lagrange
-    denominators - the grand product's two products, the two powers tables,
-    the two Kate divisions, each domain table built), one K1 pow per batch
-    inversion, one K1 dot per batch of evaluations (the widgets' own rows
-    ride the batch at z), one K1 lincomb per linear combination (r's first
-    terms, one per widget, the two openings), no lane-wise point doubling
-    or mixed add, and K1 mul / add launches no more than the prove window's
-    ceilings plus the widgets' chains and the commit calls' normalisations
-    beyond the prove window's."""
-    table = Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N
+    """A circuit's launches: per commit call one K4, K3a and K3b-wide
+    through the table (2^10 to 2^18 gates) and also one K3c on the
+    rounds-batched Pippenger (above), one K3d below 2^10; one K3f per table
+    and one K3e per SRS built; one K1 scan per scan (two per batch
+    inversion - each batch normalisation of points, the grand product's
+    denominators, the Lagrange denominators - the grand product's two
+    products, the two powers tables, the two Kate divisions, each domain
+    table built), one K1 pow per batch inversion, one K1 dot per batch of
+    evaluations (the widgets' own rows ride the batch at z), one K1 lincomb
+    per linear combination (r's first terms, one per widget, the two
+    openings), no K3b, no lane-wise point doubling or mixed add, and K1 mul
+    / add launches no more than the prove window's ceilings plus the
+    widgets' chains, the commit calls' normalisations beyond the prove
+    window's and, on the rounds route, each call's endomorphism x."""
+    route = commit_route(n)
     inversions = commit_calls + builds["table"] + builds["srs"] + 2
     want = {("field", "scan"): 2 * inversions + 6 + builds["domain_tables"], ("field", "pow"): inversions,
             ("field", "dot"): 6, ("field", "lincomb"): 3 + len(widgets),
             ("point", "dbl"): 0, ("point", "mixed_add"): 0,
-            ("point", "scalar_mul_bits"): 0 if table else commit_calls, ("point", "fixed_base"): builds["srs"],
-            ("point", "table_rows"): builds["table"], ("msm", "bucket_reduce"): 0, ("msm", "window_combine"): 0,
+            ("point", "scalar_mul_bits"): commit_calls if route == "naive" else 0,
+            ("point", "fixed_base"): builds["srs"], ("point", "table_rows"): builds["table"],
+            ("msm", "bucket_reduce"): 0, ("msm", "window_combine"): commit_calls if route == "rounds" else 0,
             ("eager", "mul_full_const"): 0, ("butterfly", "stage"): 0}
     for op in ("glv_digits", "bucket_accumulate", "bucket_reduce_wide"):
-        want[("msm", op)] = commit_calls if table else 0
-    if table:
+        want[("msm", op)] = 0 if route == "naive" else commit_calls
+    if route != "naive":
         want[("point", "add")] = 0
     faults = [f"{mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items() if counts[mod][op] != v]
     kinds = [type(w).__name__ for w in widgets]
     mul_max = (WINDOW_MUL_MAX["prove"] + NORMALIZE_MULS * (commit_calls - COMMIT_CALLS + builds["srs"])
-               + sum(WIDGET_MULS.get(k, 0) for k in kinds))
+               + sum(WIDGET_MULS.get(k, 0) for k in kinds) + (commit_calls if route == "rounds" else 0))
     add_max = WINDOW_ADD_MAX["prove"] + sum(WIDGET_ADDS.get(k, 0) for k in kinds)
     for op, ceiling in (("mul", mul_max), ("add", add_max)):
         if counts["field"][op] > ceiling:
@@ -1649,6 +1844,43 @@ def prove_crosscheck(device, rehearsal: bool) -> dict:
     return record
 
 
+def prove_large(device, n: int) -> dict:
+    """The crosscheck fixture at n gates (arithmetic widget only) as a user
+    proves it at the reference's size: test_srs(n) generated on the card,
+    the fixture's prover (host), its verifier key, construct_proof, verify,
+    and a tampered copy rejected. Returns the circuit record (launches,
+    faults, digest) with the seconds of each step, the pass plans' K2b
+    launches and faults beside circuit_faults': every K2b launch one pass
+    of a plan of the window's transforms, the squarings only
+    batch_normalize's."""
+    before, generations = read_counts(), srs_generations()
+    wall = time.perf_counter()
+    srs, srs_s = timed_once(lambda: test_srs(n, device=device), device)
+    prover, fixture_ms = timed_once(lambda: crosscheck_prover(srs, n), device)
+    builds = circuit_builds(prover, generations)
+    verifier, preprocess_ms = timed_once(lambda: preprocess(prover), device)
+    timings: dict = {}
+    proof = prover.construct_proof(timings)
+    accepted, verify_ms = timed_once(lambda: verifier.verify_proof(proof), device)
+    tampered = copy.deepcopy(proof)
+    tampered.w_l_eval = (tampered.w_l_eval + 1) % FR_MODULUS
+    record = circuit_record(f"crosscheck_n{n}", n, prover, proof, timings, before, builds, 4 + 1 + 1,
+                            srs_seconds=round(srs_s / 1e3, 3), build_seconds=round(fixture_ms / 1e3, 3),
+                            preprocess_seconds=round(preprocess_ms / 1e3, 3),
+                            verify_seconds=round(verify_ms / 1e3, 3), accepted=accepted,
+                            tampered_accepted=verifier.verify_proof(tampered))
+    record["wall_seconds"] = round(time.perf_counter() - wall, 3)
+    record["want_digest"] = CROSSCHECK_2E20_SHA256 if n == 1 << 20 else CROSSCHECK_SHA256[(n, False)]
+    log2n = n.bit_length() - 1
+    passes = sum(t * len(fft.fft_plan(log2n + i)) for i, t in PROVE_TRANSFORMS.items())
+    launches = record["launches"]
+    if launches["butterfly"]["pass"] != passes:
+        record["faults"].append(f"butterfly.pass={launches['butterfly']['pass']} (want {passes})")
+    if launches["field"]["sqr"] > 4 + 1 + 1 + builds["srs"]:
+        record["faults"].append(f"field.sqr={launches['field']['sqr']} (want at most one per normalisation)")
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-n", type=int, default=16, help="gates of the main-path circuit")
@@ -1719,6 +1951,12 @@ def main() -> int:
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
     check_precomputed(device, 5 if rehearsal else 11, log2n, () if rehearsal else (13,), rng, records)
     check_glv_digits(device, 6 if rehearsal else log2n, rng, records)
+    # the 2^20 prove's rounds-batched MSM (c = 13; K3b-wide and K3b, K3c at
+    # 1-3 chains), K2b's 4-pass plans and K1 scan at its width
+    check_rounds_msm(device, 6 if rehearsal else 16, 7 if rehearsal else LARGE_LOG2N, 5 if rehearsal else LARGE_C,
+                     rng, records)
+    check_fft_pass_large(device, (9, 10) if rehearsal else tuple(LARGE_FFT), rng, records)
+    check_scans_large(device, 1 << (11 if rehearsal else LARGE_LOG2N), rng)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
         fail("kernels", f"timed kernels disagree with their plain versions: {wrong}")
@@ -1794,15 +2032,10 @@ def main() -> int:
     proof, accepted, tampered_accepted = prove_and_verify(n, args.seed, device, timings)
     total_s = time.perf_counter() - t0
     counts["prove"], single["prove"] = read_counts(), read_single_lane()
-    all_counts = add_counts([counts[w] for w in WINDOWS])
     main_counts = add_counts([counts["srs"], counts["prove"]])
     if not accepted or tampered_accepted:
         fail("prove", f"n={n} accepted={accepted} tampered_accepted={tampered_accepted}")
     if not rehearsal:
-        idle = [f"{mod}.{op}" for mod in COUNTED for op, v in all_counts[mod].items()
-                if v == 0 and (mod, op) not in OFF_PATH]
-        if idle:
-            fail("prove", f"kernels never launched in the counted windows {WINDOWS}: {idle}")
         faults = [f"srs: {f}" for f in window_faults("srs", counts["srs"], 0, 1, 0)]
         if Prover._PRECOMP_MIN_N <= n <= Prover._PRECOMP_MAX_N:
             faults += [f"prove: {f}" for f in window_faults("prove", counts["prove"], 0, 0, COMMIT_CALLS)]
@@ -1840,9 +2073,37 @@ def main() -> int:
         emit({"phase": "circuit", **{k: v for k, v in c.items() if k != "faults"}})
     emit({"phase": "circuits", "ok": True, "seconds": round(circuits_s, 3), "launches": counts["circuits"]})
 
+    # ---- phase 8: the reference's size (window "large") --------------------
+    # the crosscheck fixture at n = 2^20 gates against test_srs(2^20) made on
+    # the card: the proof must be the reference C++ prover's bytes
+    # (CROSSCHECK.json arithmetic_2e20) and verify; every commit call of
+    # preprocess and prove is one rounds-batched Pippenger launch set (K4,
+    # K3a, K3b-wide, K3c)
+    reset_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    large = prove_large(device, 1 << (4 if rehearsal else LARGE_LOG2N))
+    counts["large"], single["large"] = read_counts(), read_single_lane()
+    bad = []
+    if not large["accepted"] or large["tampered_accepted"]:
+        bad.append(f"accepted={large['accepted']} tampered_accepted={large['tampered_accepted']}")
+    if large["digest"] != large["want_digest"]:
+        bad.append(f"sha256 {large['digest']} (CROSSCHECK.json {large['want_digest']})")
+    if not rehearsal and large["faults"]:
+        bad.append(f"launches: {large['faults']}")
+    if bad:
+        fail("large", f"n={large['n']}: " + "; ".join(bad))
+    emit({"phase": "large", "ok": True, **{k: v for k, v in large.items() if k != "faults"},
+          "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
+
     # ---- results ----------------------------------------------------------
-    windows = WINDOWS + ("circuits",)
+    windows = WINDOWS + ("circuits", "large")
     all_counts = add_counts([counts[w] for w in windows])
+    if not rehearsal:
+        idle = [f"{mod}.{op}" for mod in COUNTED for op, v in all_counts[mod].items()
+                if v == 0 and (mod, op) not in OFF_PATH]
+        if idle:
+            fail("done", f"kernels never launched in the counted windows {windows}: {idle}")
     for r in records:
         mod, op = r.pop("module"), r.pop("op")
         r["launches"] = all_counts[mod][op]

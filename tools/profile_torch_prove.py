@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time of one port prove goes.
 
-    python3 tools/profile_torch_prove.py [--log2-n 16] [--top 12]
+    python3 tools/profile_torch_prove.py [--log2-n 16] [--top 12] [--fixture random]
+    python3 tools/profile_torch_prove.py --fixture crosscheck --log2-n 20
 
-Runs `Prover.construct_proof` of the PyTorch/CUDA port on the arithmetic-gate
-fixture circuit (the one chip_smoke.py proves) under `torch.profiler`, after
-one untraced warm-up prove, and prints one JSON line: wall seconds, summed
+Runs `Prover.construct_proof` of the PyTorch/CUDA port on a fixture circuit
+- the arithmetic-gate circuit chip_smoke.py proves (`random`, the default)
+or the splitmix fixture the reference C++ prover proves (`crosscheck`,
+`fixtures.crosscheck_prover`) - under `torch.profiler`, after one untraced
+warm-up prove, and prints one JSON line: wall seconds, summed
 device seconds of all kernels, the device's busy share of the wall, the
 number of device operations (kernels and copies) the prove ran, its
 ``index_select`` calls (gathers), its ``torch.roll`` kernels, the top
@@ -37,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from barretenberg_tpu_torch import convert  # noqa: E402
+from barretenberg_tpu_torch.fixtures import crosscheck_prover  # noqa: E402
 from barretenberg_tpu_torch.kernels import butterfly, field_kernels, msm_kernels, point_kernels  # noqa: E402
 from barretenberg_tpu_torch.srs import test_srs  # noqa: E402
 from chip_smoke import fixture_arrays  # noqa: E402
@@ -132,6 +136,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-n", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--fixture", choices=("random", "crosscheck"), default="random")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -139,9 +144,16 @@ def main() -> int:
     device = torch.device("cuda", 0)
     n = 1 << args.log2_n
     srs = test_srs(n, device=device)
-    arrays = fixture_arrays(n, 7)
-    convert.prover_from_arrays(n, srs, *arrays).construct_proof()  # warm-up: builds tables (domains, the SRS's Pippenger table)
-    prover = convert.prover_from_arrays(n, srs, *arrays)
+    if args.fixture == "crosscheck":
+        def new_prover():
+            return crosscheck_prover(srs, n)
+    else:
+        arrays = fixture_arrays(n, 7)
+
+        def new_prover():
+            return convert.prover_from_arrays(n, srs, *arrays)
+    new_prover().construct_proof()  # warm-up: builds tables (domains, the SRS's Pippenger table)
+    prover = new_prover()
     torch.cuda.synchronize(device)
     for mod in COUNTED.values():
         mod.reset_counts()
@@ -159,7 +171,7 @@ def main() -> int:
     rows.sort(key=lambda r: -r[2])
     device_s = sum(r[2] for r in rows) / 1e6
     kernels = kernel_launches(rows)
-    prover = convert.prover_from_arrays(n, srs, *arrays)
+    prover = new_prover()
     fence_phases(prover, device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as fenced:
         prover.construct_proof()
@@ -167,7 +179,7 @@ def main() -> int:
     fenced_device_s = sum(e.self_device_time_total for e in fenced.key_averages()
                           if e.device_type == DeviceType.CUDA and not e.key.startswith("phase.")) / 1e6
     print(json.dumps({
-        "n": n, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
+        "n": n, "fixture": args.fixture, "device": torch.cuda.get_device_name(0), "traced_wall_seconds": wall,
         "device_seconds": device_s, "device_busy_share": device_s / wall,
         "device_ops": sum(r[1] for r in rows),
         "roll_ops": sum(r[1] for r in rows if ROLL_KERNEL in r[0]),
