@@ -44,7 +44,14 @@
 // cluster then writes every bucket of its range (its merged sum, or
 // infinity), and the last cluster of the set to finish (a counter per set)
 // runs the two suffix scans over the set's buckets as K3b does, each
-// level's lanes spread over its CTAs, which exchange sums through L2.
+// level's lanes spread over its CTAs, which exchange sums through L2. The
+// fused Pippenger schedule hands it one set of R x 2^(c-1) buckets (bucket
+// r 2^(c-1) + |d| - 1 for round r) whose window sums are per round: the
+// suffix scans run in segments of `seg` = 2^(c-1) buckets that no add
+// crosses, and every range is a whole number of rounds, so each cluster
+// scans its own rounds as soon as it has written their buckets (no counter,
+// no waiting for the set) and writes one window sum per round, lane s * R
+// + r, the layout K3c reads.
 //
 // K3c window_combine: the Horner combine of the rounds' window sums,
 // most significant first - c doublings of the running sum, then one add of
@@ -57,7 +64,8 @@
 // k1 - k2 lambda (mod r) with the Babai quotients as the high limbs of limb
 // products sized to the GLV constants, and writes the signed c-bit digits
 // of k1 and k2 in the precomputed table's entry order, each round's row
-// coalesced.
+// coalesced; for the fused schedule each digit carries its round's bucket
+// offset (round_digit), so that one sort and K3a see one bucket set.
 //
 // Layouts: planar (18, lanes) 15-bit limb arrays as everywhere in the
 // package, infinity flags one byte per lane; partial slot k of round r is
@@ -81,26 +89,6 @@ namespace cg = cooperative_groups;
 __device__ __forceinline__ int bucket_of(int d, int nbuckets) {
     int mag = d < 0 ? -d : d;
     return mag == 0 ? nbuckets : mag - 1;
-}
-
-__device__ __forceinline__ fe fe_load_cg(const uint32_t* base, long limb_stride) {
-    fe r;
-#pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) {
-        uint32_t lo = __ldcg(base + (long)(2 * k) * limb_stride);
-        uint32_t hi = __ldcg(base + (long)(2 * k + 1) * limb_stride);
-        r.v[k] = lo | (hi << 15);
-    }
-    return r;
-}
-
-__device__ __forceinline__ jpt load_pt_cg(const Pts& p, long lane, long stride) {
-    jpt v;
-    v.x = fe_load_cg(p.x + lane, stride);
-    v.y = fe_load_cg(p.y + lane, stride);
-    v.z = fe_load_cg(p.z + lane, stride);
-    v.inf = __ldcg(p.inf + lane) != 0;
-    return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -347,7 +335,7 @@ __device__ __forceinline__ int merge_depth(int t, int first, int end) {
 __global__ void __cluster_dims__(WIDE_CLUSTER, 1, 1) __launch_bounds__(REDUCE_THREADS, 1)
 bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0, Pts bk1, Pts out,
                           int* __restrict__ order, unsigned* __restrict__ done, int sets, int nslots,
-                          int nbuckets, int range_buckets, FieldConst fc) {
+                          int nbuckets, int range_buckets, int seg, FieldConst fc) {
     extern __shared__ int offs[];  // offs[b - b0]: first slot of bucket b; offs[b1 - b0] = hi
     __shared__ int range[2];
     __shared__ int longest;
@@ -446,28 +434,41 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
     __threadfence();
     cluster.sync();
     wide_stamp(s, 2);
-    if (rank == 0 && threadIdx.x == 0) last = atomicAdd(done + s, 1u) == (unsigned)ranges - 1;
-    cluster.sync();
-    const bool is_last = *cluster.map_shared_rank(&last, 0) != 0;
-    cluster.sync();  // every CTA has read rank 0's word before any may exit
-    if (!is_last) return;
-    __threadfence();
+    // the segments this cluster scans: with seg < nbuckets (the fused
+    // schedule's rounds) every range holds whole segments and each cluster
+    // scans its own right away; with one segment (the whole set) the last
+    // cluster of the set to finish scans it
+    int sb0 = b0, sn = b1 - b0;
+    if (seg == nbuckets) {
+        if (rank == 0 && threadIdx.x == 0) last = atomicAdd(done + s, 1u) == (unsigned)ranges - 1;
+        cluster.sync();
+        const bool is_last = *cluster.map_shared_rank(&last, 0) != 0;
+        cluster.sync();  // every CTA has read rank 0's word before any may exit
+        if (!is_last) return;
+        __threadfence();
+        sb0 = 0;
+        sn = nbuckets;
+    }
 
-    // (3)-(4) the last cluster of the set to finish: the full first suffix
-    // scan, then the second only for the lanes that feed lane 0 (in place),
-    // as in K3b, each level's lanes spread over the cluster's CTAs
-    const int sc_levels = max(1, bit_length(nbuckets - 1));
+    // (3)-(4) per segment of seg buckets: the full first suffix scan, then
+    // the second only for the lanes that feed the segment's first lane (in
+    // place), as in K3b, each level's lanes spread over the cluster's CTAs;
+    // no add crosses a segment's end
+    const int segs = sn / seg;
+    const int sc_levels = max(1, bit_length(seg - 1));
     for (int step = 0; step < 2 * sc_levels; ++step) {
         const bool lane0 = step >= sc_levels;
         const int i = lane0 ? step - sc_levels : step;
         const Pts src = lane0 ? (((sc_levels - 1) & 1) ? bk0 : bk1) : ((i & 1) ? bk1 : bk0);
         const Pts dst = lane0 ? src : ((i & 1) ? bk0 : bk1);
         const int d = 1 << i;
-        const Share lanes = cta_share(lane0 ? (nbuckets + 2 * d - 1) / (2 * d) : nbuckets, rank);
+        const int per = lane0 ? (seg + 2 * d - 1) / (2 * d) : seg;  // lanes of a segment at this level
+        const Share lanes = cta_share(segs * per, rank);
         for (int t = lanes.begin + threadIdx.x; t < lanes.end; t += blockDim.x) {
-            const int lane = lane0 ? t * 2 * d : t;
+            const int j = lane0 ? (t % per) * 2 * d : t % per;
+            const int lane = sb0 + (t / per) * seg + j;
             jpt p = load_pt_cg(src, bb + lane, bs);
-            if (lane + d < nbuckets) {
+            if (j + d < seg) {
                 const jpt q = load_pt_cg(src, bb + lane + d, bs);
                 p = jac_add<false>(p.x, p.y, p.z, p.inf, q.x, q.y, q.z, q.inf, fc);
             }
@@ -476,9 +477,11 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
         __threadfence();
         cluster.sync();
     }
-    if (rank == 0 && threadIdx.x == 0) {
+    if (rank == 0) {  // each segment's window sum, lane s * (nbuckets / seg) + its index
         const Pts fin = ((sc_levels - 1) & 1) ? bk0 : bk1;
-        store_pt(out, s, sets, load_pt_cg(fin, bb, bs));
+        const int nseg = nbuckets / seg;
+        for (int g = threadIdx.x; g < segs; g += blockDim.x)
+            store_pt(out, (long)s * nseg + sb0 / seg + g, (long)sets * nseg, load_pt_cg(fin, bb + sb0 + g * seg, bs));
     }
     wide_stamp(s, 3);
 }
@@ -559,11 +562,18 @@ __device__ __forceinline__ void mul_limbs(const uint32_t* a, const uint32_t* b, 
     }
 }
 
+// Digit d of round r as stored: d itself, or with a round offset (the
+// fused Pippenger schedule's one bucket set of rounds x 2^(c-1) buckets)
+// sign(d) (r * offset + |d|), so that bucket |D| - 1 = r 2^(c-1) + |d| - 1.
+__device__ __forceinline__ int round_digit(int d, int r, int offset) {
+    return d > 0 ? d + r * offset : (d < 0 ? d - r * offset : 0);
+}
+
 // A half (< 2^128, 30-bit limbs; bits above 128 dropped) as ceil(128 / c)
 // signed c-bit windows and the final carry, LSB window first: digit r goes
 // to out[r * row], and the window borrows 2^c from the next when it reaches
-// 2^(c-1), so digits lie in [-2^(c-1), 2^(c-1)].
-__device__ __forceinline__ void store_signed_digits(const fe& h, int c, int* out, long row) {
+// 2^(c-1), so digits lie in [-2^(c-1), 2^(c-1)] (before the round offset).
+__device__ __forceinline__ void store_signed_digits(const fe& h, int c, int offset, int* out, long row) {
     uint64_t lo = (uint64_t)h.v[0] | ((uint64_t)h.v[1] << 30) | ((uint64_t)h.v[2] << 60);
     uint64_t hi = ((uint64_t)h.v[2] >> 4) | ((uint64_t)h.v[3] << 26) | ((uint64_t)(h.v[4] & 0xFFu) << 56);
     const int nwin = (128 + c - 1) / c;
@@ -572,11 +582,11 @@ __device__ __forceinline__ void store_signed_digits(const fe& h, int c, int* out
     for (int r = 0; r < nwin; ++r) {
         const uint32_t v = ((uint32_t)lo & wmask) + carry;
         carry = v >= half;
-        out[r * row] = (int)v - (int)(carry << c);
+        out[r * row] = round_digit((int)v - (int)(carry << c), r, offset);
         lo = (lo >> c) | (hi << (64 - c));
         hi >>= c;
     }
-    out[nwin * row] = (int)carry;
+    out[nwin * row] = round_digit((int)carry, nwin, offset);
 }
 
 // One thread per scalar j = b * n + i of set b: leave Montgomery form, split
@@ -586,7 +596,7 @@ __device__ __forceinline__ void store_signed_digits(const fe& h, int c, int* out
 // rounds * 2n up to m are zeroed by the same threads, grid-strided.
 __global__ void __launch_bounds__(DIGIT_THREADS)
 glv_digits_kernel(const uint32_t* __restrict__ scalars, int* __restrict__ out, int sets, int n, int c,
-                  long m, FieldConst fc, GlvConst gc) {
+                  long m, int offset, FieldConst fc, GlvConst gc) {
     const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
     const long total = (long)sets * n;
     const int rounds = (128 + c - 1) / c + 1;
@@ -609,8 +619,8 @@ glv_digits_kernel(const uint32_t* __restrict__ scalars, int* __restrict__ out, i
     const fe t1 = fe_sub(q2, q1, fc);                       // k2 = t1 mod 2^128
     const fe t2 = fe_add(fe_mul(t1, lam, fc), k, fc);       // k1 = t1 lambda + k mod 2^128
     int* o = out + b * m + i;
-    store_signed_digits(t2, c, o, 2L * n);
-    store_signed_digits(t1, c, o + n, 2L * n);
+    store_signed_digits(t2, c, offset, o, 2L * n);
+    store_signed_digits(t1, c, offset, o + n, 2L * n);
 }
 
 // ---------------------------------------------------------------------------
@@ -676,14 +686,18 @@ extern "C" int bb_bucket_reduce(const void* cd, const void* px, const void* py, 
 // sets x nbuckets (two bucket buffers), then sets x nslots (the slot
 // lists); scratch8: sets x (nslots + 2 x nbuckets) flag bytes; done: sets
 // zeroed words.
+// seg: the suffix scans' segment, nbuckets (one window sum per set) or a
+// divisor of nbuckets and of range_buckets (one per segment: the fused
+// schedule's rounds); out: (18, sets x nbuckets / seg).
 extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void* py, const void* pz,
                                      const void* pinf, void* scratch32, void* scratch8, void* done,
                                      void* ox, void* oy, void* oz, void* oinf, int sets, int nslots,
-                                     int nbuckets, int range_buckets, const uint32_t* consts,
+                                     int nbuckets, int range_buckets, int seg, const uint32_t* consts,
                                      void* stream) {
     if (sets <= 0) return 0;
     if (nslots <= 0 || nbuckets <= 0 || range_buckets <= 0) return (int)cudaErrorInvalidValue;
     if (range_buckets > nbuckets) range_buckets = nbuckets;
+    if (seg <= 0 || nbuckets % seg || (seg < nbuckets && range_buckets % seg)) return (int)cudaErrorInvalidValue;
     const long ps = 18L * sets * nslots, bs = 18L * sets * nbuckets;
     uint32_t* w = (uint32_t*)scratch32;
     uint8_t* f = (uint8_t*)scratch8;
@@ -705,7 +719,7 @@ extern "C" int bb_bucket_reduce_wide(const void* cd, const void* px, const void*
     const dim3 grid((unsigned)(WIDE_CLUSTER * ranges), (unsigned)sets);
     bucket_reduce_wide_kernel<<<grid, REDUCE_THREADS, smem, (cudaStream_t)stream>>>(
         (const int*)cd, in0, mid, bk0, bk1, out, order, (unsigned*)done, sets, nslots, nbuckets,
-        range_buckets, field_const_from_host(consts));
+        range_buckets, seg, field_const_from_host(consts));
     return (int)cudaGetLastError();
 }
 
@@ -729,10 +743,12 @@ extern "C" int bb_wide_max_clusters(int range_buckets, void* out) {
 // scalars: (18, sets * n) internal-Montgomery Fr limbs; out: (sets, m) int32
 // with m >= rounds * 2n; fr_consts: Fr's 19 FieldConst words; glv_consts:
 // the 45 GlvConst words.
-extern "C" int bb_glv_digits(const void* scalars, void* out, int sets, int n, int c, long m,
+// offset: 0, or the fused schedule's buckets per round (round_digit).
+extern "C" int bb_glv_digits(const void* scalars, void* out, int sets, int n, int c, long m, int offset,
                              const uint32_t* fr_consts, const uint32_t* glv_consts, void* stream) {
     if (sets <= 0 || n <= 0) return 0;
-    if (c < 1 || c > 30 || m < ((128L + c - 1) / c + 1) * 2 * n) return (int)cudaErrorInvalidValue;
+    if (c < 1 || c > 30 || m < ((128L + c - 1) / c + 1) * 2 * n || offset < 0) return (int)cudaErrorInvalidValue;
+    if ((long)offset * ((128 + c - 1) / c + 1) + (1L << (c - 1)) > 0x7FFFFFFFL) return (int)cudaErrorInvalidValue;
     GlvConst gc;
     uint32_t* w = (uint32_t*)&gc;
     for (int t = 0; t < 5 * FE_LIMBS; ++t) w[t] = glv_consts[t];
@@ -743,7 +759,7 @@ extern "C" int bb_glv_digits(const void* scalars, void* out, int sets, int n, in
     const long total = (long)sets * n;
     const unsigned grid = (unsigned)((total + DIGIT_THREADS - 1) / DIGIT_THREADS);
     glv_digits_kernel<<<grid, DIGIT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)scalars, (int*)out, sets, n, c, m, field_const_from_host(fr_consts), gc);
+        (const uint32_t*)scalars, (int*)out, sets, n, c, m, offset, field_const_from_host(fr_consts), gc);
     return (int)cudaGetLastError();
 }
 

@@ -130,3 +130,26 @@ __device__ __forceinline__ void store_pt(const Pts& p, long lane, long stride, c
     fe_store(p.z + lane, stride, v.z);
     p.inf[lane] = v.inf ? 1 : 0;
 }
+
+// Loads that bypass the read-only and L1 caches (ld.global.cg): for
+// buffers the same kernel writes, such as a running sum passed through
+// device memory from one loop iteration to the next.
+__device__ __forceinline__ fe fe_load_cg(const uint32_t* base, long limb_stride) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) {
+        uint32_t lo = __ldcg(base + (long)(2 * k) * limb_stride);
+        uint32_t hi = __ldcg(base + (long)(2 * k + 1) * limb_stride);
+        r.v[k] = lo | (hi << 15);
+    }
+    return r;
+}
+
+__device__ __forceinline__ jpt load_pt_cg(const Pts& p, long lane, long stride) {
+    jpt v;
+    v.x = fe_load_cg(p.x + lane, stride);
+    v.y = fe_load_cg(p.y + lane, stride);
+    v.z = fe_load_cg(p.z + lane, stride);
+    v.inf = __ldcg(p.inf + lane) != 0;
+    return v;
+}

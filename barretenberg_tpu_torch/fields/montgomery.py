@@ -12,7 +12,7 @@ A ``Field`` holds its constant tensors on one explicit device. Arithmetic
 goes through the ops of kernels/field_kernels.py - ``mul``, ``sqr``,
 ``add``, ``sub``, ``pow``, ``scan``, ``dot`` and ``lincomb`` - which launch
 the CUDA kernel for a CUDA tensor and run the plain PyTorch version for a
-CPU tensor; ``neg``,
+CPU tensor; ``sqrt`` is one ``pow``; ``neg``,
 ``double``, ``mul_by_constant``, every broadcast product and the scans
 (``prefix_product``, ``affine_scan``) are expressed through those, so no
 field arithmetic on the card runs as a chain of eager limb ops.
@@ -183,6 +183,45 @@ class Field:
     def invert(self, a):
         """Fermat inversion a^(p-2); maps 0 -> 0 (reference pow semantics)."""
         return self.pow_static(a, self.p - 2)
+
+    def sqrt(self, a):
+        """a^((p+1)/4), one launch of K1's ``pow`` on the card: a square root
+        of every quadratic residue, valid for p = 3 mod 4 (BN254 Fq, the only
+        field the reference takes roots in, for hash_to_curve). Use
+        ``sqrt_host`` for p = 1 mod 4."""
+        if self.p % 4 != 3:
+            raise NotImplementedError(
+                f"device sqrt requires p = 3 mod 4; use sqrt_host for {self.params.name}"
+            )
+        return self.pow_static(a, (self.p + 1) // 4)
+
+    def sqrt_host(self, value: int) -> int | None:
+        """Tonelli-Shanks on host ints; returns None for non-residues."""
+        p = self.p
+        value %= p
+        if value == 0:
+            return 0
+        if pow(value, (p - 1) // 2, p) != 1:
+            return None
+        if p % 4 == 3:
+            return pow(value, (p + 1) // 4, p)
+        q, s = p - 1, 0
+        while q % 2 == 0:
+            q //= 2
+            s += 1
+        z = 2
+        while pow(z, (p - 1) // 2, p) != p - 1:
+            z += 1
+        m, c, t, r = s, pow(z, q, p), pow(value, q, p), pow(value, (q + 1) // 2, p)
+        while t != 1:
+            i, t2 = 0, t
+            while t2 != 1:
+                t2 = t2 * t2 % p
+                i += 1
+            b = pow(c, 1 << (m - i - 1), p)
+            m, c = i, b * b % p
+            t, r = t * c % p, r * b % p
+        return r
 
     def batch_invert(self, a, dim: int = 1):
         """Montgomery batch inversion along a batch dim: two prefix-product

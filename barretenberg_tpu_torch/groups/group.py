@@ -78,6 +78,10 @@ class Curve:
         z = self.f.zeros((n,))
         return JacobianPoints(z, z, z, self._mask(n, True))
 
+    def affine_infinity(self, n: int = 1) -> AffinePoints:
+        z = self.f.zeros((n,))
+        return AffinePoints(z, z, self._mask(n, True))
+
     def to_jacobian(self, p: AffinePoints) -> JacobianPoints:
         one = self.f.full(p.x.shape[1:], self.f.one)
         return JacobianPoints(p.x, p.y, one, p.inf)
@@ -110,6 +114,14 @@ class Curve:
     def neg(self, p: JacobianPoints) -> JacobianPoints:
         return JacobianPoints(p.x, self.f.neg(p.y), p.z, p.inf)
 
+    def neg_affine(self, p: AffinePoints) -> AffinePoints:
+        return AffinePoints(p.x, self.f.neg(p.y), p.inf)
+
+    def conditional_negate_affine(self, p: AffinePoints, predicate: torch.Tensor) -> AffinePoints:
+        """-p on the lanes where ``predicate`` ((n,) bool) holds, as a lane
+        select (the reference's cmov)."""
+        return AffinePoints(p.x, self.f.select(predicate, self.f.neg(p.y), p.y), p.inf)
+
     # ------------------------------------------------------------------
     # Normalization / predicates
     # ------------------------------------------------------------------
@@ -122,6 +134,9 @@ class Curve:
         x = f.mul(p.x, zinv2)
         y = f.mul(p.y, f.mul(zinv, zinv2))
         return AffinePoints(x, y, p.inf)
+
+    def normalize(self, p: JacobianPoints) -> AffinePoints:
+        return self.batch_normalize(p)
 
     def batch_normalize_chunked(self, p: JacobianPoints, chunk: int = 1 << 16) -> AffinePoints:
         """batch_normalize in fixed-size chunks (bounds the scans' scratch)."""
@@ -149,6 +164,16 @@ class Curve:
         rhs = f.add(f.mul(f.sqr(p.x), p.x), self.b.reshape(18, 1))
         return p.inf | f.eq(lhs, rhs)
 
+    def eq(self, p: JacobianPoints, q: JacobianPoints) -> torch.Tensor:
+        """Projective equality by cross-multiplication: x1 z2^2 = x2 z1^2 and
+        y1 z2^3 = y2 z1^3, or both at infinity."""
+        f = self.f
+        z1z1 = f.sqr(p.z)
+        z2z2 = f.sqr(q.z)
+        x_eq = f.eq(f.mul(p.x, z2z2), f.mul(q.x, z1z1))
+        y_eq = f.eq(f.mul(p.y, f.mul(q.z, z2z2)), f.mul(q.y, f.mul(p.z, z1z1)))
+        return (p.inf & q.inf) | (~p.inf & ~q.inf & x_eq & y_eq)
+
     # ------------------------------------------------------------------
     # Scalar multiplication (oracle-grade; MSM lives in msm/)
     # ------------------------------------------------------------------
@@ -159,6 +184,16 @@ class Curve:
         from ..kernels import point_kernels
 
         return point_kernels.scalar_mul_bits(p, bits)
+
+    def scalar_mul_windowed(self, p: AffinePoints, scalars_mont: torch.Tensor, c: int = 5) -> JacobianPoints:
+        """[k_l] p_l for an arbitrary base per lane and its internal-Montgomery
+        Fr scalar ((18, n)), by signed c-bit windows over the full 254-bit
+        scalar (no endomorphism): per lane a table of 2^(c-1) + 1 multiples,
+        then c doublings and one table add per window. One K3g launch on the
+        card (its plain walk on the CPU)."""
+        from ..kernels import point_kernels
+
+        return point_kernels.windowed_walk(p, scalars_mont, c)
 
     def tree_sum(self, p: JacobianPoints, groups: int = 1) -> JacobianPoints:
         """Log-depth sum over the lane axis, viewed as `groups` contiguous

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import BUILD_DIR
-from ..fields.params import FR_PARAMS, GLV_B2, GLV_G1, GLV_G2, GLV_MINUS_B1, R_INTERNAL, FieldParams
+from ..fields.params import FQ_PARAMS, FR_PARAMS, GLV_B2, GLV_G1, GLV_G2, GLV_MINUS_B1, R_INTERNAL, FieldParams
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("field_kernels", "butterfly", "point_kernels", "point_chains", "msm_kernels")
@@ -131,15 +131,16 @@ _SIGNATURES = {
         "bb_scalar_mul_bits": [_VP, _VP, _VP, _L, _VP, _I] + [_VP] * 4 + [_L, _VP, _VP],
         "bb_fixed_base": [_VP, _VP, _I, _I] + [_VP] * 4 + [_L, _VP, _VP],
         "bb_table_rows": [_VP, _VP, _VP, _L, _I, _I] + [_VP] * 4 + [_VP, _VP],
+        "bb_windowed_walk": [_I, _VP, _VP, _VP, _L, _VP, _I, _I] + [_VP] * 5 + [_VP, _VP, _VP, _VP],
     },
     "msm_kernels": {
         "bb_bucket_accumulate": [_VP] * 9 + [_I] * 5 + [_VP, _VP],
         "bb_accumulate_capacity": [_VP],
         "bb_bucket_reduce": [_VP] * 11 + [_I] * 3 + [_VP, _VP],
-        "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 4 + [_VP, _VP],
+        "bb_bucket_reduce_wide": [_VP] * 12 + [_I] * 5 + [_VP, _VP],
         "bb_wide_max_clusters": [_I, _VP],
         "bb_window_combine": [_VP] * 8 + [_I, _I, _I, _VP, _VP],
-        "bb_glv_digits": [_VP, _VP, _I, _I, _I, _L, _VP, _VP, _VP],
+        "bb_glv_digits": [_VP, _VP, _I, _I, _I, _L, _I, _VP, _VP, _VP],
     },
 }
 
@@ -213,6 +214,12 @@ def glv_consts():
         return [w for v in (GLV_G2 << 14, GLV_G1 << 14, GLV_MINUS_B1, GLV_B2, lam) for w in _limbs30(v)]
 
     return _host_words("glv", words)
+
+
+def endo_consts():
+    """The 9 host words of beta, Fq's cube root of unity, in internal
+    Montgomery form as 30-bit limbs: K3g's psi(x, y, z) = (beta x, -y, z)."""
+    return _host_words("endo", lambda: _limbs30(FQ_PARAMS.cube_root * R_INTERNAL % FQ_PARAMS.modulus))
 
 
 def check(err: int, what: str) -> None:

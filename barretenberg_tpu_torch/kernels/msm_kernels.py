@@ -66,6 +66,14 @@ B x R sets (K3b's function on each: the same window sums, coordinate for
 coordinate); at n = 2^20 (c = 13) one CTA per round, as K3b runs them,
 would leave 121 of 132 SMs idle through ~1,600 dependent adds a thread.
 
+The fused Pippenger schedule (the JAX package's default up to 2^15 points,
+``msm/pippenger.py:309-399``) puts every round of a vector into ONE bucket
+set of R x 2^(c-1) buckets: K4 folds each digit's round into its magnitude
+(``round_offset``, ``fuse_rounds``), so one sort and K3a take the set as
+they take any; K3b-wide merges it in ranges of whole rounds and runs the
+suffix scans in segments of 2^(c-1) (``segment``), one window sum per
+round, the JAX package's ``_suffix_scan_points_seg`` (``:124``).
+
 K4 ``glv_digits`` replaces the GLV split and signed digits that the JAX
 package runs inside its jitted Pippenger (``msm/wnaf.py:73-97``
 ``split_scalars``, whose field steps - ``to_plain``, ``sub``, ``mont_mul``,
@@ -174,14 +182,17 @@ def accumulate_block(entries: int, capacity: int) -> int:
     return ACC_BLOCKS[0]
 
 
-def wide_range_buckets(nbuckets: int, sets: int, device) -> int:
+def wide_range_buckets(nbuckets: int, sets: int, device, segment: int | None = None) -> int:
     """K3b-wide's default buckets per cluster: the fewest that give every set
     the same number of ranges and all sets' clusters at most
     ``wide_max_clusters``, so that they run in one wave; with more sets
     than that (a rounds-batched commit call's B x R rounds), one range a
-    set, in waves."""
+    set, in waves. With ``segment`` (the fused schedule's rounds of
+    2^(c-1) buckets) a range holds a whole number of segments."""
     per_set = max(1, wide_max_clusters(nbuckets, device) // sets)
-    return -(-nbuckets // per_set)
+    if segment is None:
+        return -(-nbuckets // per_set)
+    return -(-(nbuckets // segment) // per_set) * segment
 
 
 def reset_counts() -> None:
@@ -417,12 +428,21 @@ def plain_bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return _window_sums(plain_bucket_sums(partials, nbuckets))
 
 
-def plain_bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
+def plain_bucket_reduce_wide(
+    partials: Partials, nbuckets: int, range_buckets: int | None = None, segment: int | None = None
+) -> JacobianPoints:
     """K3b-wide's function, each bucket set's window sum, with the set's
     partials merged in ranges of ``range_buckets`` buckets as the kernel's
     clusters merge them (None: uncut). Every range starts at a segment start,
-    so the result does not depend on the cut."""
-    return _window_sums(plain_bucket_sums(partials, nbuckets, range_buckets))
+    so the result does not depend on the cut. With ``segment`` (a divisor of
+    nbuckets: the fused schedule's 2^(c-1) buckets a round) each set's
+    buckets are nbuckets / segment windows, suffix-scanned apart: an (18,
+    sets * nbuckets / segment) batch, lane s * R + r = set s's window r."""
+    sums = plain_bucket_sums(partials, nbuckets, range_buckets)
+    if segment is not None:
+        lanes = sums.inf.numel() // segment
+        sums = JacobianPoints(*(t.reshape(L, lanes, segment) for t in sums[:3]), sums.inf.reshape(lanes, segment))
+    return _window_sums(sums)
 
 
 def digit_rounds(c: int) -> int:
@@ -431,17 +451,26 @@ def digit_rounds(c: int) -> int:
     return -(-128 // c) + 1
 
 
-def plain_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+def fuse_rounds(digits: torch.Tensor, offset: int) -> torch.Tensor:
+    """Signed digits (rounds, ...) -> each digit d of round r as sign(d)
+    (r * offset + |d|): with offset 2^(c-1), bucket |D| - 1 is the fused
+    schedule's r 2^(c-1) + |d| - 1 in one set of rounds x 2^(c-1)."""
+    r = torch.arange(digits.shape[0], device=digits.device, dtype=digits.dtype).reshape((-1,) + (1,) * (digits.ndim - 1))
+    return digits + torch.sign(digits) * r * offset
+
+
+def plain_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int, round_offset: int = 0) -> torch.Tensor:
     """K4's function as the eager chain: GLV split (``msm/wnaf.py``
     ``split_scalars``) and signed digits (``signed_digits``) of ``sets``
     scalar vectors of n, given as one (18, sets * n) internal-Montgomery Fr
     tensor -> (sets, m) int32: round r's n digits of k1, then its n of k2,
-    rounds one after another, zeros up to m."""
+    rounds one after another, zeros up to m; each with its round's
+    ``round_offset`` (``fuse_rounds``)."""
     from ..msm.wnaf import signed_digits, split_scalars  # msm imports this module
 
     n = scalars.shape[1] // sets
     k1, k2 = split_scalars(scalars)
-    d1, d2 = (signed_digits(k, c).reshape(-1, sets, n) for k in (k1, k2))
+    d1, d2 = (fuse_rounds(signed_digits(k, c), round_offset).reshape(-1, sets, n) for k in (k1, k2))
     digits = torch.cat([d1, d2], dim=2).permute(1, 0, 2).reshape(sets, -1)
     return torch.nn.functional.pad(digits, (0, m - digits.shape[1]))
 
@@ -488,7 +517,7 @@ def _launch_accumulate(entries: SortedRounds, table: torch.Tensor, nbuckets: int
     rounds, m = entries.order.shape
     nblocks = m // block
     k = partial_slots(nbuckets, nblocks, block)
-    table = _check(table, (m, ROW_WORDS), torch.int32, dev)
+    table = _check(table, (table.shape[0], ROW_WORDS), torch.int32, dev)
 
     def cols(t):  # (R, M) -> (R, block, nblocks): step j of a round's walks is one row
         return t.reshape(rounds, nblocks, block).transpose(1, 2).to(torch.int32).contiguous()
@@ -537,7 +566,9 @@ def _launch_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
-def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int, lib=None) -> JacobianPoints:
+def _launch_reduce_wide(
+    partials: Partials, nbuckets: int, range_buckets: int, lib=None, segment: int | None = None
+) -> JacobianPoints:
     """K3b-wide's launch; ``lib`` is the package's msm_kernels library unless a
     debug build of it is given (tools/time_torch_wide.py)."""
     cd = partials.bucket
@@ -552,15 +583,17 @@ def _launch_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int, l
     scratch32 = torch.empty(3 * L * sets * (k + 2 * nbuckets) + sets * k, dtype=torch.int32, device=dev)
     scratch8 = torch.empty(sets * (k + 2 * nbuckets), dtype=torch.uint8, device=dev)
     done = torch.zeros(sets, dtype=torch.int32, device=dev)
-    ox, oy, oz = (torch.empty((L, sets), dtype=torch.int32, device=dev) for _ in range(3))
-    oinf = torch.empty(sets, dtype=torch.uint8, device=dev)
+    seg = segment or nbuckets
+    lanes = sets * (nbuckets // seg)
+    ox, oy, oz = (torch.empty((L, lanes), dtype=torch.int32, device=dev) for _ in range(3))
+    oinf = torch.empty(lanes, dtype=torch.uint8, device=dev)
     lib = lib or build.get_lib("msm_kernels")
     with torch.cuda.device(dev):
         err = lib.bb_bucket_reduce_wide(
             cd.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), inf.data_ptr(),
             scratch32.data_ptr(), scratch8.data_ptr(), done.data_ptr(),
             ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oinf.data_ptr(),
-            sets, k, nbuckets, range_buckets, build.field_consts(FQ_PARAMS), build.current_stream(),
+            sets, k, nbuckets, range_buckets, seg, build.field_consts(FQ_PARAMS), build.current_stream(),
         )
     build.check(err, "bucket_reduce_wide")
     launch_counts["bucket_reduce_wide"] += 1
@@ -588,7 +621,7 @@ def _launch_combine(windows: JacobianPoints, c: int, sets: int) -> JacobianPoint
     return JacobianPoints(ox, oy, oz, oinf.view(torch.bool))
 
 
-def _launch_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+def _launch_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int, round_offset: int) -> torch.Tensor:
     dev = scalars.device
     if not scalars.is_cuda:
         raise ValueError("glv_digits kernel takes CUDA tensors")
@@ -598,7 +631,7 @@ def _launch_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torc
     lib = build.get_lib("msm_kernels")
     with torch.cuda.device(dev):
         err = lib.bb_glv_digits(
-            scalars.data_ptr(), out.data_ptr(), sets, n, c, m,
+            scalars.data_ptr(), out.data_ptr(), sets, n, c, m, round_offset,
             build.field_consts(FR_PARAMS), build.glv_consts(), build.current_stream(),
         )
     build.check(err, "glv_digits")
@@ -609,16 +642,20 @@ def _launch_glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torc
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
-def glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int) -> torch.Tensor:
+def glv_digits(scalars: torch.Tensor, sets: int, c: int, m: int, round_offset: int = 0) -> torch.Tensor:
     """K4: ``sets`` scalar vectors of n, one (18, sets * n) internal-Montgomery
     Fr tensor -> (sets, m) int32 signed c-bit GLV digits: per set, round r's
     n digits of k1, then its n of k2, rounds one after another (m >=
-    ``digit_rounds(c)`` * 2n), zeros beyond."""
+    ``digit_rounds(c)`` * 2n), zeros beyond. ``round_offset``: the fused
+    schedule's 2^(c-1), which folds each digit's round into its magnitude
+    (``fuse_rounds``)."""
     if scalars.shape[1] % sets or not 1 <= c <= 30 or m < digit_rounds(c) * 2 * (scalars.shape[1] // sets):
         raise ValueError(f"glv_digits: {scalars.shape[1]} scalars in {sets} sets, c = {c}, m = {m}")
+    if round_offset < 0 or round_offset * digit_rounds(c) + (1 << (c - 1)) >= 1 << 31:
+        raise ValueError(f"glv_digits: round offset {round_offset} at c = {c} leaves int32")
     if scalars.is_cuda:
-        return _launch_glv_digits(scalars, sets, c, m)
-    return plain_glv_digits(scalars, sets, c, m)
+        return _launch_glv_digits(scalars, sets, c, m, round_offset)
+    return plain_glv_digits(scalars, sets, c, m, round_offset)
 
 
 def bucket_accumulate(entries: SortedRounds, px, py, pinf, nbuckets: int, block: int) -> Partials:
@@ -642,15 +679,22 @@ def bucket_reduce(partials: Partials, nbuckets: int) -> JacobianPoints:
     return plain_bucket_reduce(partials, nbuckets)
 
 
-def bucket_reduce_wide(partials: Partials, nbuckets: int, range_buckets: int | None = None) -> JacobianPoints:
+def bucket_reduce_wide(
+    partials: Partials, nbuckets: int, range_buckets: int | None = None, segment: int | None = None
+) -> JacobianPoints:
     """K3b-wide: compacted partials of S bucket sets -> each set's window
     sum, (18, S); ``range_buckets`` buckets per cluster of CTAs (default
-    ``wide_range_buckets``)."""
+    ``wide_range_buckets``). With ``segment`` (the fused schedule: each set
+    is R rounds of ``segment`` buckets) each round's window sum, (18, S *
+    R), lane s * R + r; the ranges then hold whole rounds."""
+    if segment is not None and (nbuckets % segment or (range_buckets and range_buckets % segment)):
+        raise ValueError(f"bucket_reduce_wide: segments of {segment} do not cut {nbuckets} buckets "
+                         f"in ranges of {range_buckets}")
     if partials.bucket.is_cuda:
         dev = partials.bucket.device
-        rb = range_buckets or wide_range_buckets(nbuckets, partials.bucket.shape[0], dev)
-        return _launch_reduce_wide(partials, nbuckets, rb)
-    return plain_bucket_reduce_wide(partials, nbuckets, range_buckets)
+        rb = range_buckets or wide_range_buckets(nbuckets, partials.bucket.shape[0], dev, segment)
+        return _launch_reduce_wide(partials, nbuckets, rb, segment=segment)
+    return plain_bucket_reduce_wide(partials, nbuckets, range_buckets, segment)
 
 
 def window_combine(windows: JacobianPoints, c: int, sets: int = 1) -> JacobianPoints:

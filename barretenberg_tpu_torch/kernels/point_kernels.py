@@ -1,5 +1,5 @@
-"""K3: the complete masked G1 Jacobian group law over Fq, and its three
-lane-wise chains as one launch each (K3d, K3e, K3f).
+"""K3: the complete masked G1 Jacobian group law over Fq, and its four
+lane-wise chains as one launch each (K3d, K3e, K3f, K3g).
 
 Replaces the JAX package's Pallas kernels ``kernels/point_kernels.py``
 ``_kernel_fn`` / ``_dbl_rows`` (public ``dbl``, ``add``, ``mixed_add``).
@@ -47,6 +47,20 @@ storing it after every c. It is bound by operations; the rows are then
 normalised to affine in one batched normalisation (affine coordinates are
 unique, so how the JAX package chunks its normalisations cannot show).
 
+K3g ``windowed_walk`` (``csrc/point_chains.cu``) replaces the two
+``lax.scan``s of the JAX package's arbitrary-base scalar multiplication
+(``groups/group.py:324-397``: ``_build_mul_table``, one ``mixed_add`` per
+table entry, and ``_windowed_walk``, per signed window c ``dbl`` and one
+``add`` of a gathered table entry per digit set), behind
+``Curve.scalar_mul_windowed`` and ``groups/g1.py::scalar_mul_glv``. One
+thread per lane builds its table T[m] = m P (m <= 2^(c-1)) in device memory
+and walks the rounds most significant first, against T alone (windowed:
+the full scalar's digits, computed in the kernel from the Montgomery
+scalar) or T and psi(T) = (beta x, -y, z) (GLV: K4's digits of k1 and k2).
+It is bound by that thread's chain of dependent products (~2,770 a lane
+for the windowed walk at c = 5, ~1,950 for GLV), so its CTAs are one warp
+each, as K3d's; the point operations are the plain walk's in its order.
+
 Infinity masks travel as one byte per lane; the wrapper converts to and
 from ``bool``. A CUDA batch always launches the kernel (or raises); a CPU
 batch always takes the plain version below.
@@ -56,17 +70,21 @@ from __future__ import annotations
 
 import torch
 
-from ..fields.params import FQ_PARAMS, LIMB_MASK, NUM_LIMBS
+from ..fields.params import FQ_PARAMS, FR_PARAMS, LIMB_MASK, NUM_LIMBS
 from ..groups.group import AffinePoints, JacobianPoints
 from . import build
 from .field_kernels import limb_field
 
 L = NUM_LIMBS
 ROW_WORDS = 20  # csrc/point.cuh: one point-table row
+ENTRY_WORDS = 28  # csrc/point_chains.cu: one K3g table entry (x, y, z, inf)
+SCALAR_BITS = 254  # bits of an Fr scalar
+MAX_WALK_C = 16  # K3g's widest window (csrc/point_chains.cu WALK_MAX_C)
 
 # Kernel launches per op since the counters were last reset (reset_counts),
 # and how many of them ran one lane.
-launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0, "scalar_mul_bits": 0, "fixed_base": 0, "table_rows": 0}
+launch_counts = {"dbl": 0, "add": 0, "mixed_add": 0, "scalar_mul_bits": 0, "fixed_base": 0, "table_rows": 0,
+                 "windowed_walk": 0}
 single_lane_counts = dict.fromkeys(launch_counts, 0)
 
 
@@ -226,6 +244,71 @@ def plain_table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
     return JacobianPoints(*(torch.cat([getattr(q, k) for q in out], dim=-1) for k in ("x", "y", "z", "inf")))
 
 
+def walk_rounds(c: int, glv: bool) -> int:
+    """Digit rounds of K3g's walk at window c: a 128-bit GLV half's
+    ceil(128 / c) signed windows and the final carry, or the full 254-bit
+    scalar's ceil(254 / c) and the carry."""
+    return -(-(128 if glv else SCALAR_BITS) // c) + 1
+
+
+def plain_mul_table(p: AffinePoints, size: int) -> JacobianPoints:
+    """T[m] = m P for m < size, as (18, size, n) coordinates and (size, n)
+    flags: T[0] at infinity with zero coordinates, then one mixed add of P
+    per entry (the JAX package's ``Curve._build_mul_table`` order)."""
+    acc = _infinity(p.x.shape[1], p.x.device)
+    tab = [acc]
+    for _ in range(size - 1):
+        acc = plain_mixed_add(acc, p)
+        tab.append(acc)
+    return JacobianPoints(*(torch.stack([getattr(q, k) for q in tab], dim=-2) for k in ("x", "y", "z", "inf")))
+
+
+def endo_table(tab: JacobianPoints) -> JacobianPoints:
+    """psi(T) = (beta x, -y, z) of every table entry."""
+    f = limb_field(FQ_PARAMS)
+    return JacobianPoints(f.mont_mul(tab.x, f.const_rows(FQ_PARAMS.cube_root, tab.x)), f.neg(tab.y), tab.z, tab.inf)
+
+
+def plain_table_walk(tables, digit_sets, c: int) -> JacobianPoints:
+    """The signed-window walk, most significant round first: per round c
+    doublings, then per (table, digits) pair one full add of entry |d| of
+    each lane's table, with y negated where d < 0; digit_sets: (rounds, n)
+    each, LSB round first (``Curve._windowed_walk``)."""
+    f = limb_field(FQ_PARAMS)
+    rounds, n = digit_sets[0].shape
+    acc = _infinity(n, tables[0].x.device)
+    for r in reversed(range(rounds)):
+        for _ in range(c):
+            acc = plain_dbl(acc)
+        for tab, d in zip(tables, digit_sets):
+            dr = d[r].to(torch.int64)
+            idx = dr.abs().reshape(1, 1, n)
+            x, y, z = (t.gather(1, idx.expand(L, 1, n))[:, 0] for t in tab[:3])
+            inf = tab.inf.gather(0, idx[0])[0]
+            acc = plain_add(acc, JacobianPoints(x, f.select(dr < 0, f.neg(y), y), z, inf))
+    return acc
+
+
+def plain_windowed_walk(p: AffinePoints, scalars_mont: torch.Tensor, c: int) -> JacobianPoints:
+    """K3g's windowed mode: the full-width signed c-bit digits of each lane's
+    scalar (``msm/wnaf.py::signed_digits_full`` of its plain value) walked
+    against the lane's table of 2^(c-1) + 1 multiples of its point."""
+    from ..msm.wnaf import signed_digits_full  # msm imports this module
+
+    fr = limb_field(FR_PARAMS)
+    plain_one = torch.zeros_like(scalars_mont)
+    plain_one[0] = 1
+    digits = signed_digits_full(fr.mont_mul(scalars_mont, plain_one), c)
+    return plain_table_walk([plain_mul_table(p, (1 << (c - 1)) + 1)], [digits], c)
+
+
+def plain_glv_walk(p: AffinePoints, digits: torch.Tensor, c: int) -> JacobianPoints:
+    """K3g's GLV mode: digits (rounds, 2, n) of k1 and k2 (K4's layout)
+    walked against the table T and psi(T), sharing the doublings."""
+    tab = plain_mul_table(p, (1 << (c - 1)) + 1)
+    return plain_table_walk([tab, endo_table(tab)], [digits[:, 0], digits[:, 1]], c)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -377,6 +460,40 @@ def _launch_table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
     return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
 
 
+def _launch_windowed_walk(p: AffinePoints, c: int, scalars=None, digits=None) -> JacobianPoints:
+    n, dev = p.x.shape[1], p.x.device
+    glv = digits is not None
+    rounds = walk_rounds(c, glv)
+    x, y = (_coord(t, n, dev) for t in (p.x, p.y))
+    inf = _mask(p.inf, n, dev)
+    if glv:
+        if digits.dtype != torch.int32 or digits.shape != (rounds, 2, n) or digits.device != dev:
+            raise ValueError(f"glv_walk takes ({rounds}, 2, {n}) int32 digits on {dev}, got "
+                             f"{tuple(digits.shape)} {digits.dtype} on {digits.device}")
+        src = digits.contiguous()
+    else:
+        src = _coord(scalars, n, dev)
+    table = torch.empty(n * ((1 << (c - 1)) + 1) * ENTRY_WORDS, dtype=torch.int32, device=dev)
+    ox, oy, oz = (torch.empty((L, n), dtype=torch.int32, device=dev) for _ in range(3))
+    oi = torch.empty(n, dtype=torch.uint8, device=dev)
+    lib = build.get_lib("point_chains")
+    with torch.cuda.device(dev):
+        err = lib.bb_windowed_walk(
+            1 if glv else 0, x.data_ptr(), y.data_ptr(), inf.data_ptr(), n, src.data_ptr(), c, rounds,
+            table.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), oi.data_ptr(),
+            build.field_consts(FQ_PARAMS), build.field_consts(FR_PARAMS), build.endo_consts(),
+            build.current_stream(),
+        )
+    build.check(err, "windowed_walk")
+    _count("windowed_walk", n)
+    return JacobianPoints(ox, oy, oz, oi.view(torch.bool))
+
+
+def _walk_window(c: int) -> None:
+    if not 1 <= c <= MAX_WALK_C:
+        raise ValueError(f"the windowed walk takes 1 <= c <= {MAX_WALK_C}, got {c}")
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
@@ -406,3 +523,17 @@ def table_rows(p: AffinePoints, rows: int, c: int) -> JacobianPoints:
     """K3f: rows 1 .. rows-1 of the precomputed Pippenger table, row r
     holding 2^(r c) p, as Jacobian points (18, (rows - 1) * n)."""
     return _launch_table_rows(p, rows, c) if p.x.is_cuda else plain_table_rows(p, rows, c)
+
+
+def windowed_walk(p: AffinePoints, scalars_mont: torch.Tensor, c: int) -> JacobianPoints:
+    """K3g, windowed: per lane, [k] p for the lane's internal-Montgomery Fr
+    scalar k ((18, n)), by signed c-bit windows over the full scalar."""
+    _walk_window(c)
+    return _launch_windowed_walk(p, c, scalars=scalars_mont) if p.x.is_cuda else plain_windowed_walk(p, scalars_mont, c)
+
+
+def glv_walk(p: AffinePoints, digits: torch.Tensor, c: int) -> JacobianPoints:
+    """K3g, GLV: per lane, k1 p + k2 psi(p) from the signed c-bit digits of
+    k1 and k2, (rounds, 2, n) int32 (K4's layout for one set)."""
+    _walk_window(c)
+    return _launch_windowed_walk(p, c, digits=digits) if p.x.is_cuda else plain_glv_walk(p, digits, c)

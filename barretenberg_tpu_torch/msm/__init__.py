@@ -1,5 +1,6 @@
 from .naive import MSM_PIPPENGER_THRESHOLD, batched_msm, msm, naive_msm
 from .pippenger import (
+    FUSED_MAX_N,
     PippengerPointTable,
     generate_pippenger_point_table,
     optimal_window,
@@ -10,9 +11,10 @@ from .pippenger import (
     pippenger_precomputed_batch,
     scalar_digits,
 )
-from .wnaf import signed_digits, split_scalars
+from .wnaf import signed_digits, signed_digits_full, split_scalars
 
 __all__ = [
+    "FUSED_MAX_N",
     "MSM_PIPPENGER_THRESHOLD",
     "PippengerPointTable",
     "batched_msm",
@@ -27,5 +29,6 @@ __all__ = [
     "pippenger_precomputed_batch",
     "scalar_digits",
     "signed_digits",
+    "signed_digits_full",
     "split_scalars",
 ]

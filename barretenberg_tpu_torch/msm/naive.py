@@ -14,9 +14,7 @@ from ..fields import fr as _fr
 from ..fields.params import LIMB_BITS
 from ..groups import AffinePoints, JacobianPoints
 from ..groups.g1 import g1 as _g1
-from .pippenger import SCALAR_BITS, pippenger, pippenger_batch
-
-MSM_PIPPENGER_THRESHOLD = 4096
+from .pippenger import MSM_PIPPENGER_THRESHOLD, SCALAR_BITS, pippenger, pippenger_batch
 
 
 def scalar_bits(scalars_mont: torch.Tensor) -> torch.Tensor:
@@ -39,7 +37,9 @@ def naive_msm(scalars_mont: torch.Tensor, points: AffinePoints) -> JacobianPoint
 
 
 def msm(scalars_mont: torch.Tensor, points: AffinePoints) -> JacobianPoints:
-    """Size-dispatching MSM."""
+    """Size-dispatching MSM, as the JAX package's: the naive MSM below
+    MSM_PIPPENGER_THRESHOLD points, the fused Pippenger schedule up to
+    ``pippenger.FUSED_MAX_N``, the rounds-batched one above."""
     if scalars_mont.shape[1] < MSM_PIPPENGER_THRESHOLD:
         return naive_msm(scalars_mont, points)
     return pippenger(scalars_mont, points)
@@ -49,9 +49,10 @@ def batched_msm(scalars_list, points: AffinePoints) -> JacobianPoints:
     """B MSMs over the same point set (the prover commits wire/quotient
     groups together). Small sizes run as ONE double-and-add over B*n lanes
     (lane l takes point l % n) and a per-group tree reduction; large sizes
-    as ONE rounds-batched Pippenger schedule over all B (each group's result
-    the JAX package's per-group non-fused ``pippenger``). Returns a (B,)
-    JacobianPoints batch."""
+    as ONE Pippenger launch set over all B (``pippenger_batch``): up to
+    ``pippenger.FUSED_MAX_N`` points the fused schedule, above it the
+    rounds-batched one, each group's result the JAX package's per-group
+    ``pippenger``. Returns a (B,) JacobianPoints batch."""
     b = len(scalars_list)
     n = scalars_list[0].shape[1]
     if n >= MSM_PIPPENGER_THRESHOLD:

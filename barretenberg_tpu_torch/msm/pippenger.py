@@ -43,10 +43,23 @@ the MSM. The table also keeps each entry's endomorphism image, the padding
 to a multiple of the block and the K3a row layout, so a commitment computes
 only its digits, one stable sort, K3a and K3b-wide `bucket_reduce_wide`; B
 commitments are B bucket sets of one launch each. `pippenger_low_memory`
-runs fixed-size chunks and adds their sums. The JAX package's fused
-single-sort schedule is not ported. Every commitment is normalised to
+runs fixed-size chunks and adds their sums (always the rounds-batched
+schedule, as the JAX package's does). Every commitment is normalised to
 affine before it enters a proof, so proof bytes do not depend on the
 schedule.
+
+The fused schedule (`_pippenger_fused_impl`, the JAX package's
+`msm/pippenger.py:309-399`), which the JAX package runs by default up to
+FUSED_MAX_N points: every (round, entry) pair of a vector is one entry of
+ONE bucket set of R * 2^(c-1) buckets, bucket r * 2^(c-1) + |d| - 1. K4
+writes the digits with their rounds folded in (``round_offset``), one
+stable sort orders all R * 2N entries, K3a walks them in blocks of the JAX
+package's ``min(block, max(16, 2N))`` (where the blocks fall fixes the
+partials, so the block is never the precomputed route's
+``accumulate_block``), K3b-wide merges the one set and suffix-scans it in
+segments of 2^(c-1) that no add crosses, one window per round, and K3c
+combines the windows. B vectors are B sets of the same five launches, each
+set's coordinates the JAX package's per-vector ``pippenger(fused=True)``.
 """
 
 from __future__ import annotations
@@ -61,6 +74,15 @@ from ..kernels import msm_kernels, point_kernels
 from .wnaf import window
 
 SCALAR_BITS = 254
+
+# msm / batched_msm run the naive MSM below MSM_PIPPENGER_THRESHOLD points
+# (msm/naive.py) and Pippenger from there: by default the fused schedule up
+# to FUSED_MAX_N (the JAX package's cutover), the rounds-batched one above.
+# Below the threshold pippenger() keeps the rounds-batched schedule unless
+# asked (the JAX package's pippenger() is fused there; no entry point
+# reaches it there).
+MSM_PIPPENGER_THRESHOLD = 4096
+FUSED_MAX_N = 1 << 15
 
 
 def scalar_digits(scalars_mont: torch.Tensor, c: int) -> torch.Tensor:
@@ -81,6 +103,15 @@ def optimal_window(n: int) -> int:
     return 13
 
 
+def endo_points(points: AffinePoints):
+    """The 2N entry points of an MSM over N points: each point, then its
+    endomorphism image (beta x, -y), as px, py (18, 2N) and pinf (2N,)."""
+    fq = _fq(points.x.device)
+    px = torch.cat([points.x, fq.mul_by_constant(points.x, fq.params.cube_root)], dim=1)
+    py = torch.cat([points.y, fq.neg(points.y)], dim=1)
+    return px, py, torch.cat([points.inf, points.inf], dim=0)
+
+
 def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int, sets: int = 1):
     """The MSM's bucket entries: GLV split + endo point table,
     k*P = k1*P + k2*(beta*x, -y). ``scalars_mont``: (18, sets * N), the
@@ -88,14 +119,10 @@ def glv_entries(scalars_mont: torch.Tensor, points: AffinePoints, c: int, block:
     N. Returns signed digits (sets * R, M) int32 (row s * R + r: vector s's
     round r), the entries' affine coordinates px, py (18, M) and pinf (M,),
     with M = 2N padded to a multiple of `block` by dead entries."""
-    fq = _fq(scalars_mont.device)
     n = points.x.shape[1]
     rounds = msm_kernels.digit_rounds(c)
     digits = msm_kernels.glv_digits(scalars_mont, sets, c, rounds * 2 * n).reshape(sets * rounds, 2 * n)
-    beta_x = fq.mul_by_constant(points.x, fq.params.cube_root)
-    px = torch.cat([points.x, beta_x], dim=1)
-    py = torch.cat([points.y, fq.neg(points.y)], dim=1)
-    pinf = torch.cat([points.inf, points.inf], dim=0)
+    px, py, pinf = endo_points(points)
     m_total = digits.shape[1]
     pad = -(-m_total // block) * block - m_total
     if pad:
@@ -118,23 +145,49 @@ def _pippenger_impl(
     return msm_kernels.window_combine(windows, c, sets)
 
 
+def _pippenger_fused_impl(
+    scalars_mont: torch.Tensor, points: AffinePoints, c: int, block: int, sets: int = 1
+) -> JacobianPoints:
+    """``sets`` MSMs over one point set (scalars (18, sets * N)) by the
+    fused schedule, one set of R * 2^(c-1) buckets per vector: K4 (digits
+    with their rounds folded in), one sort, K3a, K3b-wide (per-round
+    segments), K3c. Returns (sets,)."""
+    n = points.x.shape[1]
+    rounds = msm_kernels.digit_rounds(c)
+    nbuckets = 1 << (c - 1)
+    nb_total = rounds * nbuckets
+    m = -(-rounds * 2 * n // block) * block  # entry r * 2N + i: round r, point i
+    digits = msm_kernels.glv_digits(scalars_mont, sets, c, m, round_offset=nbuckets)
+    entries = msm_kernels.sort_rounds(digits, nb_total)
+    entries = entries._replace(order=entries.order % (2 * n))  # each entry's point
+    partials = msm_kernels.bucket_accumulate(entries, *endo_points(points), nb_total, block)
+    windows = msm_kernels.bucket_reduce_wide(partials, nb_total, segment=nbuckets)  # lane s * R + r
+    return msm_kernels.window_combine(windows, c, sets)
+
+
 def pippenger_batch(
     scalars_list,
     points: AffinePoints,
     c: int | None = None,
     block: int = 128,
+    fused: bool | None = None,
 ) -> JacobianPoints:
     """B MSMs over one point set, sum_i scalars_b[i] * points[i] for each of
-    the B (18, N) scalar vectors, as one rounds-batched schedule: one K4,
-    one sort, one K3a, one K3b-wide and one K3c launch for all B. Returns a
-    (B,) JacobianPoints batch, each the JAX package's non-fused
-    ``pippenger`` of its vector, coordinate for coordinate."""
+    the B (18, N) scalar vectors, as one launch set for all B: one K4, one
+    sort, one K3a, one K3b-wide and one K3c. Returns a (B,) JacobianPoints
+    batch, each the JAX package's ``pippenger`` of its vector, coordinate for
+    coordinate: by the fused schedule (``fused``; by default for
+    MSM_PIPPENGER_THRESHOLD <= N <= FUSED_MAX_N) or else the rounds-batched one (the JAX package's
+    non-fused ``pippenger``)."""
     n = scalars_list[0].shape[1]
     if c is None:
         c = optimal_window(n)
     block = min(block, max(16, 2 * n))
+    if fused is None:
+        fused = MSM_PIPPENGER_THRESHOLD <= n <= FUSED_MAX_N
     scalars = scalars_list[0] if len(scalars_list) == 1 else torch.cat(list(scalars_list), dim=1)
-    return _pippenger_impl(scalars, points, c, block, len(scalars_list))
+    impl = _pippenger_fused_impl if fused else _pippenger_impl
+    return impl(scalars, points, c, block, len(scalars_list))
 
 
 def pippenger(
@@ -142,12 +195,14 @@ def pippenger(
     points: AffinePoints,
     c: int | None = None,
     block: int = 128,
+    fused: bool | None = None,
 ) -> JacobianPoints:
     """MSM: sum_i scalars[i] * points[i] -> JacobianPoints batch (1,).
 
     scalars_mont: (18, N) internal-Montgomery Fr values. points: affine
-    batch (N). Runs on the device the tensors lie on."""
-    return pippenger_batch([scalars_mont], points, c, block)
+    batch (N). ``fused``: the schedule (``pippenger_batch``). Runs on the
+    device the tensors lie on."""
+    return pippenger_batch([scalars_mont], points, c, block, fused)
 
 
 class PippengerPointTable:

@@ -110,15 +110,24 @@ def window(limbs: torch.Tensor, lo: int, c: int) -> torch.Tensor:
     return d & ((1 << c) - 1)
 
 
-def signed_digits(half: torch.Tensor, c: int) -> torch.Tensor:
-    """(18, N) plain value < 2^128 -> (rounds, N) int32 signed window digits,
-    LSB window first; digits in [-2^(c-1), 2^(c-1)]."""
-    nwin = -(-HALF_BITS // c)
-    carry = torch.zeros(half.shape[1], dtype=torch.int64, device=half.device)
+def signed_digits_full(value: torch.Tensor, c: int, nbits: int = 254) -> torch.Tensor:
+    """(18, N) plain canonical value < 2^nbits -> (ceil(nbits / c) + 1, N)
+    int32 signed window digits, LSB window first, the last the final carry;
+    digits in [-2^(c-1), 2^(c-1)]. Over the full scalar width this is what
+    the arbitrary-base windowed scalar multiplication walks (K3g computes
+    the same digits in its own body)."""
+    nwin = -(-nbits // c)
+    carry = torch.zeros(value.shape[1], dtype=torch.int64, device=value.device)
     out = []
     for r in range(nwin):
-        v = window(half, r * c, c) + carry
+        v = window(value, r * c, c) + carry
         carry = (v >= (1 << (c - 1))).to(torch.int64)
         out.append(v - (carry << c))
     out.append(carry)  # final carry digit
     return torch.stack(out).to(torch.int32)
+
+
+def signed_digits(half: torch.Tensor, c: int) -> torch.Tensor:
+    """(18, N) plain value < 2^128 -> (rounds, N) int32 signed window digits,
+    LSB window first; digits in [-2^(c-1), 2^(c-1)]."""
+    return signed_digits_full(half, c, HALF_BITS)

@@ -85,6 +85,33 @@ def divide_by_pseudo_vanishing_polynomial(
     return fr.mont_mul(fr.mont_mul(evals, inv_tiled), numerator)
 
 
+def compute_kate_opening_coefficients(coeffs: torch.Tensor, z: int) -> tuple[torch.Tensor, int]:
+    """W(X) = (F(X) - F(z)) / (X - z) by the reference's forward recurrence
+    d_i = (c_i - d_{i-1}) * (-1/z) (polynomial_arithmetic.cpp:562-591): the
+    affine recurrence d_i = m d_{i-1} + b_i with m = 1/z, b_0 = (c_0 - F(z))
+    (-1/z), b_i = c_i (-1/z), one K1 ``scan`` launch on the card. Returns
+    (W, F(z))."""
+    fr = _fr(coeffs.device)
+    f = evaluate(coeffs, z)
+    w = (-pow(z, -1, fr.p)) % fr.p  # -1/z
+    b0 = (fr.decode(coeffs[:, :1])[0] - f) * w % fr.p
+    b = torch.cat([fr.encode([b0]), fr.mul_by_constant(coeffs, w)[:, 1:]], dim=1)
+    return fr.affine_scan(fr.encode([(-w) % fr.p]), b, dim=1), f
+
+
+def compress_fft(evals: torch.Tensor, factor_log2: int) -> torch.Tensor:
+    """Evaluations on a 2^k domain -> evaluations on the 2^(k-j) subdomain
+    (every 2^j-th point; reference polynomial_arithmetic.cpp:629-639)."""
+    return evals[:, :: 1 << factor_log2]
+
+
+def shrink_evaluation_domain(coeffs: torch.Tensor, new_size: int) -> torch.Tensor:
+    """Truncate a coefficient array to a smaller power-of-two domain
+    (reference polynomial.cpp:330-346; valid when the high coefficients are
+    zero, the caller's responsibility, as in the reference)."""
+    return coeffs[:, :new_size]
+
+
 class LagrangeEvaluations(NamedTuple):
     vanishing_poly: int  # Z_H*(z)
     l_1: int

@@ -74,7 +74,20 @@ reference C++ prover's bytes), it must verify and a tampered copy must
 not, and each of the 6 commit calls must be one rounds-batched Pippenger
 launch set (one K4, K3a, K3b-wide and K3c; no K3b, K3f, K3d) with the
 pass plans' K2b launches; it prints the seconds of each step and the
-peak device memory. Each
+peak device memory. Last, phase "g1" (counted window "g1", each call's
+launches counted alone) drives the G1 library surface: msm at 2^12 points
+and batched_msm of 3 vectors at 2^15 (the fused Pippenger schedule's two
+ends: one K4, sort, K3a, K3b-wide over per-round segments and K3c a call),
+the windowed and GLV scalar multiplications at c = 5 (one K3g each, GLV
+with one K4) and scalar_mul (one K3d) on 2^12 lanes, hash_to_curve of 2^12
+points (one K1 pow) and random_points_device (one K3d); it fails on any
+other launch count, a lane-wise point op, a result off the host oracle or
+off the curve. Its kernels are held in the kernels phase: K3g against its
+plain walk (exact) on 2^12 lanes with edge lanes and on 16 against the
+host, timed at 2^16; the fused MSM at 2^12 (c = 8) and 2^15 (c = 10)
+exactly against its plain stages and, in affine form, against the
+rounds-batched route and the host oracle, 3 vectors as one launch set
+against single calls, K3a and K3b-wide timed at the fused shapes. Each
 phase prints one JSON line and any failing phase exits non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
 
@@ -115,20 +128,27 @@ from barretenberg_tpu_torch.groups.g1 import (
     fixed_base_mul,
     fixed_base_table,
     g1 as get_g1,
+    hash_to_curve,
     host_to_affine_points,
     jacobian_to_host,
     points_to_host,
+    random_points_device,
+    scalar_mul,
+    scalar_mul_glv,
 )
 from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
 from barretenberg_tpu_torch.msm import (
+    batched_msm,
     generate_pippenger_point_table,
+    msm,
     optimal_window,
     pippenger,
+    pippenger_batch,
     pippenger_precomputed,
 )
 from barretenberg_tpu_torch.msm.naive import MSM_PIPPENGER_THRESHOLD, scalar_bits
 from barretenberg_tpu_torch.msm import wnaf
-from barretenberg_tpu_torch.msm.pippenger import glv_entries, precomputed_digits
+from barretenberg_tpu_torch.msm.pippenger import endo_points, glv_entries, precomputed_digits
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.plonk.prover import Prover
 from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
@@ -184,6 +204,9 @@ REPLACES = {
     "field_scan": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in the fori_loops of barretenberg_tpu/utils/scans.py:19-62 (hillis_scan, affine_scan)",
     "field_dot": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in barretenberg_tpu/plonk/prover.py:259-271 (_multi_eval_jit) and barretenberg_tpu/polynomials/arithmetic.py:19-28, :55-58, :69-71 (_tree_sum, _evaluate_jit, evaluate_device)",
     "field_lincomb": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add) in barretenberg_tpu/plonk/prover.py:274-282 (_linear_combo_jit)",
+    "windowed_walk": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add, dbl, add) in the lax.scans of barretenberg_tpu/groups/group.py:331 and :373 (_build_mul_table, _windowed_walk)",
+    "bucket_accumulate_fused": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:191, over the fused schedule's one bucket set (:380)",
+    "bucket_reduce_wide_fused": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :124 (_suffix_scan_points_seg), over the fused schedule's one bucket set (:380-383)",
 }
 # K4's 32-bit multiply-adds per scalar: its four limb products at the
 # widths it is compiled with (9 x 3, 9 x 5, 3 x 5 and 5 x 3 wide multiplies
@@ -198,6 +221,7 @@ def emit(obj) -> None:
 
 def fail(phase: str, why: str) -> None:
     emit({"phase": phase, "ok": False, "error": why})
+    print(f"chip_smoke: phase {phase} failed: {why}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -235,11 +259,14 @@ def timed_once(fn, device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def device_ms(fn, device, kernel: str, reps: int = 20):
+def device_ms(fn, device, kernel: str, reps: int = 20, sessions: int = 3):
     """Mean device milliseconds per launch of the CUDA kernel whose profiler
     name contains `kernel`, over `reps` calls of fn after one warm-up
-    (torch.profiler); None on the CPU rehearsal. Fails if the profiler sees
-    no device time for it."""
+    (torch.profiler); None on the CPU rehearsal. A profiler session on the
+    H100 now and then records no device activity at all, so up to
+    `sessions` are tried; if none sees the kernel, the device operations the
+    last one saw are printed and None is returned (the CUDA-event time `ms`
+    and every exactness check stand regardless)."""
     if device.type != "cuda":
         return None
     from torch.autograd import DeviceType
@@ -247,15 +274,19 @@ def device_ms(fn, device, kernel: str, reps: int = 20):
 
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(device)
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
-    calls, total_us = sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
-    if not calls or total_us <= 0:
-        fail("kernels", f"the profiler saw no device time for {kernel}")
-    return total_us / calls / 1e3
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows = [e for e in events if kernel in e.key]
+        calls, total_us = sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+        if calls and total_us > 0:
+            return total_us / calls / 1e3
+    emit({"phase": "kernels", "note": f"the profiler saw no device time for {kernel} in {sessions} sessions",
+          "seen": sorted({e.key[:80] for e in events})})
+    return None
 
 
 def bound(nbytes: float, imads: float):
@@ -1116,18 +1147,20 @@ def table_rows_work(pinf: torch.Tensor, rows: int, c: int) -> int:
     return int((~pinf).sum()) * (rows - 1) * c * POINT_MULS["dbl"]
 
 
-def wide_adds(cd: torch.Tensor, nbuckets: int) -> int:
+def wide_adds(cd: torch.Tensor, nbuckets: int, segment: int | None = None) -> int:
     """Adds K3b-wide needs for this input: s - 1 per bucket of s partials,
-    then per set the first suffix scan and the lanes of the second that feed
-    the window."""
-    sets = cd.shape[0]
+    then per set (per segment of ``segment`` buckets, the fused schedule's
+    rounds) the first suffix scan and the lanes of the second that feed the
+    window."""
+    seg = segment or nbuckets
+    scans = cd.shape[0] * (nbuckets // seg)
     live = cd < nbuckets
     starts = torch.ones_like(live)
     starts[:, 1:] = cd[:, 1:] != cd[:, :-1]
     adds = int(live.sum()) - int((live & starts).sum())
-    for i in range(max(1, (nbuckets - 1).bit_length())):
+    for i in range(max(1, (seg - 1).bit_length())):
         d = 1 << i
-        adds += sets * (max(0, nbuckets - d) + -(-max(0, nbuckets - d) // (2 * d)))
+        adds += scans * (max(0, seg - d) + -(-max(0, seg - d) // (2 * d)))
     return adds
 
 
@@ -1559,6 +1592,195 @@ def check_scans_large(device, n: int, rng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the G1 library surface (kernels phase: K3g, the fused schedule's kernels)
+# ---------------------------------------------------------------------------
+WALK_C = 5  # the windowed and GLV walks' window (the JAX package's default)
+G1_BATCH = 3  # batched_msm's vectors at the fused schedule's top size
+
+
+def known_points(device, n: int, rng):
+    """n affine points [k_i]G and their host scalars k_i (one K3e launch, one
+    batched normalisation): lane 1 repeats lane 0's point, lane 2 is at
+    infinity (k = 0)."""
+    ks = rand_values(n, FR_MODULUS, rng)
+    ks[1], ks[2] = ks[0], 0
+    return get_g1(device).batch_normalize(fixed_base_mul(ks, device)), ks
+
+
+def known_msm(ks: list, scalars: list):
+    """sum_i s_i [k_i]G = [sum_i s_i k_i]G on the host (None = infinity)."""
+    return host_curve.g1_mul(host_curve.G1_GENERATOR, sum(s * k for s, k in zip(scalars, ks)) % FR_MODULUS)
+
+
+def walk_scalars(n: int, rng) -> list:
+    """Random Fr scalars with edges in front: 0, 1, 2, r - 1, 16 and 16 * 33
+    (digits of -2^(c-1) at c = 5 in one and in two windows), 2^253."""
+    vals = rand_values(n, FR_MODULUS, rng)
+    vals[:7] = [0, 1, 2, FR_MODULUS - 1, 16, 16 * 33, 1 << 253]
+    return vals
+
+
+def walk_work(digit_sets: list, pinf: torch.Tensor, c: int, glv: bool):
+    """Field products K3g's input needs per lane: the table's 2^(c-1) - 1
+    mixed adds (T[1] from infinity is free); from the first round with a
+    nonzero digit on, c doublings per later round and one add per later
+    nonzero digit (the first add starts from infinity), and in GLV one
+    product for psi's beta x per nonzero k2 digit; a lane at infinity needs
+    none. Returns (products over all lanes, products of the longest lane)."""
+    rounds = digit_sets[0].shape[0]
+    nz = [d.ne(0) for d in digit_sets]
+    any_add = torch.stack(nz).any(0)
+    has = any_add.any(0)
+    top = any_add.flip(0).to(torch.int32).argmax(0)  # the first round with an add, MSB first
+    dbls = torch.where(has, (rounds - 1 - top) * c, 0)
+    adds = torch.where(has, sum(x.sum(0) for x in nz) - 1, 0)
+    beta = nz[1].sum(0) if glv else 0
+    table = ((1 << (c - 1)) - 1) * POINT_MULS["mixed_add"]
+    per_lane = torch.where(pinf, 0, table + POINT_MULS["dbl"] * dbls + POINT_MULS["add"] * adds + beta)
+    return int(per_lane.sum()), int(per_lane.max())
+
+
+def check_windowed_walk(device, lanes_check: int, lanes_time: int, rng, records: list) -> None:
+    """K3g windowed_walk, windowed and GLV at c = 5, exactly against its plain
+    walk on lanes_check lanes with edge lanes (a point at infinity, a
+    repeated point, walk_scalars' edges), the first 16 also against the host
+    oracle, then at lanes_time lanes, timed there (the GLV digits from K4)."""
+    fr = get_fr(device)
+    c = WALK_C
+    rounds = msm_kernels.digit_rounds(c)
+    for n in (lanes_check, lanes_time):
+        pts, ks = known_points(device, n, rng)
+        svals = walk_scalars(n, rng)
+        s = fr.encode(svals)
+        digits = msm_kernels.glv_digits(s, 1, c, rounds * 2 * n).reshape(rounds, 2, n)
+        for glv in (False, True):
+            if glv:
+                run = lambda: point_kernels.glv_walk(pts, digits, c)
+                plain = lambda: point_kernels.plain_glv_walk(pts, digits, c)
+            else:
+                run = lambda: point_kernels.windowed_walk(pts, s, c)
+                plain = lambda: point_kernels.plain_windowed_walk(pts, s, c)
+            mode = "glv" if glv else "windowed"
+            got = run()
+            want, plain_ms = timed_once(plain, device)
+            err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+            if err:
+                fail("kernels", f"windowed_walk ({mode}) disagrees with its plain version at {n} lanes")
+            if n == lanes_check:
+                head = JacobianPoints(*(t[..., :16] for t in got))
+                host = [host_curve.g1_mul(host_curve.G1_GENERATOR, k * v) for k, v in zip(ks[:16], svals[:16])]
+                if jacobian_to_host(head) != host:
+                    fail("kernels", f"windowed_walk ({mode}) disagrees with the host oracle")
+                continue
+            dsets = [digits[:, 0], digits[:, 1]] if glv else [wnaf.signed_digits_full(fr.to_plain(s), c)]
+            products, chain = walk_work(dsets, pts.inf, c, glv)
+            nbytes = n * (2 * ELEM_BYTES + 1) + (digits.numel() * 4 if glv else n * ELEM_BYTES) + n * JAC_BYTES
+            b_ms, b_by = bound(nbytes, products * IMAD_PER_FIELD_MUL)
+            ms = time_ms(run, device, 5)
+            records.append({
+                "name": f"windowed_walk_{mode}", "module": "point", "op": "windowed_walk", "route": "cuda",
+                "source": "barretenberg_tpu_torch/csrc/point_chains.cu", "replaces": REPLACES["windowed_walk"],
+                "shape": [18, n], "c": c, "rounds": rounds if glv else point_kernels.walk_rounds(c, False),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "chain_products": chain, "us_per_chain_product": ms * 1e3 / chain,
+            })
+
+
+def fused_plain(scalars: torch.Tensor, sets: int, pts: AffinePoints, c: int, block: int) -> JacobianPoints:
+    """The fused schedule (msm/pippenger.py::_pippenger_fused_impl) through
+    the plain versions of its five stages."""
+    n = pts.x.shape[1]
+    rounds, nb = msm_kernels.digit_rounds(c), 1 << (c - 1)
+    m = -(-rounds * 2 * n // block) * block
+    digits = msm_kernels.plain_glv_digits(scalars, sets, c, m, nb)
+    entries = msm_kernels.sort_rounds(digits, rounds * nb)
+    entries = entries._replace(order=entries.order % (2 * n))
+    partials = msm_kernels.plain_bucket_accumulate(entries, *endo_points(pts), rounds * nb, block)
+    windows = msm_kernels.plain_bucket_reduce_wide(partials, rounds * nb, None, nb)
+    return msm_kernels.plain_window_combine(windows, c, sets)
+
+
+def check_fused_msm(device, sizes: tuple, rng, records: list) -> None:
+    """The fused Pippenger schedule at 2^k points for each k of ``sizes``
+    (c = optimal_window: 8 at 2^12, 10 at 2^15), scalars with the edges 0, 1,
+    r - 1 and 2^253, points with a repeated one and one at infinity: the
+    kernels' result exactly against the plain stages' (fused_plain) and, in
+    affine form, against the rounds-batched route and the host oracle
+    (known_msm); at the largest, also G1_BATCH vectors as one fused launch
+    set (pippenger_batch, what batched_msm runs there) against single calls
+    and the oracle, and K3a and K3b-wide timed at their fused shapes."""
+    curve, fr = get_g1(device), get_fr(device)
+    for log2n in sizes:
+        n = 1 << log2n
+        c = optimal_window(n)
+        nb, rounds = 1 << (c - 1), msm_kernels.digit_rounds(c)
+        block = min(MSM_BLOCK, max(16, 2 * n))
+        pts, ks = known_points(device, n, rng)
+        vecs = [chain_scalars(n, rng) for _ in range(G1_BATCH)]
+        enc = [fr.encode(v) for v in vecs]
+        got = pippenger(enc[0], pts, fused=True)
+        want = fused_plain(enc[0], 1, pts, c, block)
+        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+        if err:
+            fail("kernels", f"the fused MSM disagrees with its plain stages at 2^{log2n} points")
+        other = pippenger(enc[0], pts, fused=False)
+        oracle = [known_msm(ks, vecs[0])]
+        if not jacobian_to_host(got) == jacobian_to_host(other) == oracle:
+            fail("kernels", f"the fused MSM disagrees with the rounds-batched route or the host at 2^{log2n} points")
+        if log2n != max(sizes):
+            continue
+        batch = pippenger_batch(enc, pts, fused=True)  # what batched_msm runs there
+        for b in range(G1_BATCH):
+            single = pippenger(enc[b], pts, fused=True)
+            if not same(JacobianPoints(*(t[..., b : b + 1] for t in batch)), single):
+                fail("kernels", f"the fused batch's vector {b} disagrees with its single fused call at 2^{log2n} points")
+        if jacobian_to_host(batch) != [known_msm(ks, v) for v in vecs]:
+            fail("kernels", f"the fused batch disagrees with the host oracle at 2^{log2n} points")
+        # K3a and K3b-wide at the fused shape of one vector (the msm path) and of the batch
+        m = -(-rounds * 2 * n // block) * block
+        px, py, pinf = endo_points(pts)
+        for sets in (1, G1_BATCH):
+            scal = enc[0] if sets == 1 else torch.cat(enc, dim=1)
+            entries = msm_kernels.sort_rounds(msm_kernels.glv_digits(scal, sets, c, m, nb), rounds * nb)
+            entries = entries._replace(order=entries.order % (2 * n))
+            run_acc = lambda: msm_kernels.bucket_accumulate(entries, px, py, pinf, rounds * nb, block)
+            partials = run_acc()
+            want_p, acc_plain_ms = timed_once(
+                lambda: msm_kernels.plain_bucket_accumulate(entries, px, py, pinf, rounds * nb, block), device)
+            acc_err = max(int((partials.bucket - want_p.bucket).abs().max()), max_abs_err(partials.points, want_p.points))
+            run_red = lambda: msm_kernels.bucket_reduce_wide(partials, rounds * nb, segment=nb)
+            win = run_red()
+            want_w, red_plain_ms = timed_once(
+                lambda: msm_kernels.plain_bucket_reduce_wide(partials, rounds * nb, None, nb), device)
+            red_err = max(max_abs_err(win[:3], want_w[:3]), int(win.inf.ne(want_w.inf).any()))
+            if acc_err or red_err:
+                fail("kernels", f"the fused K3a / K3b-wide disagree with their plain versions at {sets} x 2^{log2n}")
+            k = partials.bucket.shape[1]
+            partial_bytes = sets * k * (JAC_BYTES + 4)
+            path = f"fused MSM, {sets} x 2^{log2n} points, c = {c}, block {block}"
+            acc_b = bound(sets * m * 8 + 2 * n * (2 * ELEM_BYTES + 1) + partial_bytes,
+                          accumulate_madds(entries, pinf, rounds * nb, block) * POINT_MULS["mixed_add"]
+                          * IMAD_PER_FIELD_MUL)
+            red_b = bound(partial_bytes + sets * rounds * JAC_BYTES,
+                          wide_adds(partials.bucket, rounds * nb, nb) * POINT_MULS["add"] * IMAD_PER_FIELD_MUL)
+            range_buckets = (msm_kernels.wide_range_buckets(rounds * nb, sets, device, nb)
+                             if device.type == "cuda" else None)
+            for name, op, err, run, plain_ms, (b_ms, b_by), shape in (
+                    ("bucket_accumulate_fused", "bucket_accumulate", acc_err, run_acc, acc_plain_ms, acc_b,
+                     [sets, m, block]),
+                    ("bucket_reduce_wide_fused", "bucket_reduce_wide", red_err, run_red, red_plain_ms, red_b,
+                     [sets, k, rounds * nb, nb])):
+                records.append({
+                    "name": name, "module": "msm", "op": op, "route": "cuda",
+                    "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES[name],
+                    "shape": shape, "path": path, "max_abs_err": err, "ms": time_ms(run, device, 5),
+                    "device_ms": device_ms(run, device, f"{op}_kernel", 5), "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **({"range_buckets": range_buckets} if op == "bucket_reduce_wide" else {}),
+                })
+
+
+# ---------------------------------------------------------------------------
 COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
 
 
@@ -1881,6 +2103,120 @@ def prove_large(device, n: int) -> dict:
     return record
 
 
+# The G1 library surface as a user calls it (window "g1"): per call, the
+# launches it must show beside no lane-wise dbl / add / mixed_add, no K3b,
+# no K3f and no eager GLV limb product. A fused MSM is one K4, one sort,
+# one K3a, one K3b-wide and one K3c; a windowed walk one K3g; a GLV walk one
+# K4 and one K3g; hash_to_curve one K1 pow; scalar_mul one K3d;
+# random_points_device one K3d and one batched normalisation (one pow).
+FUSED_CALL = {("msm", "glv_digits"): 1, ("msm", "sort"): 1, ("msm", "bucket_accumulate"): 1,
+              ("msm", "bucket_reduce_wide"): 1, ("msm", "window_combine"): 1}
+G1_CALLS = {
+    "msm_fused": FUSED_CALL,
+    "batched_msm_fused": FUSED_CALL,
+    "scalar_mul_windowed": {("point", "windowed_walk"): 1},
+    "scalar_mul_glv": {("point", "windowed_walk"): 1, ("msm", "glv_digits"): 1},
+    "scalar_mul": {("point", "scalar_mul_bits"): 1},
+    "hash_to_curve": {("field", "pow"): 1},
+    "random_points_device": {("point", "scalar_mul_bits"): 1, ("field", "pow"): 1},
+}
+G1_NONE = (("point", "dbl"), ("point", "add"), ("point", "mixed_add"), ("point", "table_rows"),
+           ("point", "fixed_base"), ("msm", "bucket_reduce"), ("eager", "mul_full_const"))
+G1_KERNELS = (("point", "windowed_walk"), ("point", "scalar_mul_bits"), ("field", "pow"), ("msm", "glv_digits"),
+              ("msm", "bucket_accumulate"), ("msm", "bucket_reduce_wide"), ("msm", "window_combine"))
+
+
+def g1_faults(name: str, counts: dict, sorts: int) -> list:
+    want = dict.fromkeys(G1_KERNELS, 0)
+    want.update(dict.fromkeys(G1_NONE, 0))
+    want[("msm", "sort")] = 0
+    want.update(G1_CALLS[name])
+    got = {k: sorts if k == ("msm", "sort") else counts[k[0]][k[1]] for k in want}
+    return [f"{name}: {mod}.{op}={got[(mod, op)]} (want {v})" for (mod, op), v in want.items() if got[(mod, op)] != v]
+
+
+def run_g1_surface(device, rehearsal: bool, rng):
+    """The G1 surface's entry points, each call with the counts set to 0 just
+    before it and read just after: msm at 2^12 points and batched_msm of
+    three vectors at 2^15 (the fused schedule's two ends), the windowed and
+    GLV scalar multiplications and scalar_mul on 2^12 lanes, hash_to_curve
+    and random_points_device for 2^12 points; then every result checked
+    (host oracle, the curve equation, the plain path on the first lanes).
+    Returns (record, the window's summed counts, faults)."""
+    curve, fr = get_g1(device), get_fr(device)
+    small, large = (64, 128) if rehearsal else (1 << 12, 1 << 15)
+    pts, ks = known_points(device, small, rng)
+    big, big_ks = known_points(device, large, rng)
+    svals = walk_scalars(small, rng)
+    s = fr.encode(svals)
+    vecs = [chain_scalars(large, rng) for _ in range(G1_BATCH)]
+    enc = [fr.encode(v) for v in vecs]
+    k = rand_values(1, FR_MODULUS, rng)[0]
+    seed = rng.bytes(32)
+    draw = np.random.default_rng(int(rng.integers(1 << 62)))
+    draw_state = copy.deepcopy(draw)
+    calls = {
+        "msm_fused": lambda: msm(s, pts),
+        "batched_msm_fused": lambda: batched_msm(enc, big),
+        "scalar_mul_windowed": lambda: curve.scalar_mul_windowed(pts, s, WALK_C),
+        "scalar_mul_glv": lambda: scalar_mul_glv(pts, s, WALK_C),
+        "scalar_mul": lambda: scalar_mul(pts, k),
+        "hash_to_curve": lambda: hash_to_curve(seed, small, device=device),
+        "random_points_device": lambda: random_points_device(small, draw, device=device),
+    }
+    sorts = [0]
+    sort_rounds = msm_kernels.sort_rounds
+
+    def counted_sort(*a, **kw):
+        sorts[0] += 1
+        return sort_rounds(*a, **kw)
+
+    out, ms, parts, singles, faults = {}, {}, [], [], []
+    msm_kernels.sort_rounds = counted_sort
+    try:
+        for name, fn in calls.items():
+            reset_counts()
+            sorts[0] = 0
+            out[name], ms[name] = timed_once(fn, device)
+            parts.append(read_counts())
+            singles.append(read_single_lane())
+            faults += g1_faults(name, parts[-1], sorts[0])
+    finally:
+        msm_kernels.sort_rounds = sort_rounds
+    window, single = add_counts(parts), add_counts(singles)
+
+    bad = []
+    host_pts = [host_curve.g1_mul(host_curve.G1_GENERATOR, kk) for kk in ks[:16]]
+    if jacobian_to_host(out["msm_fused"]) != [known_msm(ks, svals)]:
+        bad.append("msm disagrees with the host oracle")
+    if jacobian_to_host(out["batched_msm_fused"]) != [known_msm(big_ks, v) for v in vecs]:
+        bad.append("batched_msm disagrees with the host oracle")
+    win, glv = (curve.batch_normalize(out[n]) for n in ("scalar_mul_windowed", "scalar_mul_glv"))
+    if not same(win, glv):
+        bad.append("the windowed and GLV walks disagree in affine form")
+    for name in ("scalar_mul_windowed", "scalar_mul_glv"):
+        head = JacobianPoints(*(t[..., :16] for t in out[name]))
+        if jacobian_to_host(head) != [host_curve.g1_mul(p, v) for p, v in zip(host_pts, svals[:16])]:
+            bad.append(f"{name} disagrees with the host oracle")
+    head = JacobianPoints(*(t[..., :16] for t in out["scalar_mul"]))
+    if jacobian_to_host(head) != [host_curve.g1_mul(p, k) for p in host_pts]:
+        bad.append("scalar_mul disagrees with the host oracle")
+    h2c = out["hash_to_curve"]
+    sample = points_to_host(AffinePoints(*(t[..., :64] for t in h2c)))
+    if not bool(curve.on_curve_affine(h2c).all()) or h2c.inf.any() or not all(map(host_curve.g1_is_on_curve, sample)):
+        bad.append("hash_to_curve gave a point off the curve")
+    if not same(AffinePoints(*(t[..., :8].cpu() for t in h2c)), hash_to_curve(seed, 8, device="cpu")):
+        bad.append("hash_to_curve's first lanes differ from the plain path's")
+    rp = out["random_points_device"]
+    want_rp = [host_curve.g1_mul(host_curve.G1_GENERATOR, int.from_bytes(draw_state.bytes(32), "little") % FR_MODULUS or 1)
+               for _ in range(16)]
+    if points_to_host(AffinePoints(*(t[..., :16] for t in rp))) != want_rp:
+        bad.append("random_points_device disagrees with the host oracle")
+    record = {"phase": "g1", "ok": True, "sizes": {"small": small, "large": large}, "walk_c": WALK_C,
+              "call_ms": ms, "launches": window}
+    return record, window, single, faults, bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-n", type=int, default=16, help="gates of the main-path circuit")
@@ -1957,6 +2293,11 @@ def main() -> int:
                      rng, records)
     check_fft_pass_large(device, (9, 10) if rehearsal else tuple(LARGE_FFT), rng, records)
     check_scans_large(device, 1 << (11 if rehearsal else LARGE_LOG2N), rng)
+    # the G1 surface's kernels: K3g (windowed and GLV at c = 5) on 2^12 lanes
+    # with edge lanes, timed at 2^16; the fused schedule at 2^12 and 2^15
+    # points (K3a and K3b-wide timed at the 2^15 shapes)
+    check_windowed_walk(device, 16 if rehearsal else 1 << 12, 32 if rehearsal else 1 << 16, rng, records)
+    check_fused_msm(device, (6, 7) if rehearsal else (12, 15), rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
         fail("kernels", f"timed kernels disagree with their plain versions: {wrong}")
@@ -2096,8 +2437,19 @@ def main() -> int:
     emit({"phase": "large", "ok": True, **{k: v for k, v in large.items() if k != "faults"},
           "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
 
+    # ---- phase 9: the G1 library surface (window "g1") ---------------------
+    # the fused Pippenger schedule through msm (2^12) and batched_msm (3 x
+    # 2^15), the windowed and GLV scalar multiplications (K3g), scalar_mul,
+    # hash_to_curve and random_points_device, each call counted alone
+    t0 = time.perf_counter()
+    g1_record, counts["g1"], single["g1"], faults, bad = run_g1_surface(device, rehearsal, rng)
+    bad += [] if rehearsal else faults
+    if bad:
+        fail("g1", "; ".join(bad))
+    emit({**g1_record, "seconds": round(time.perf_counter() - t0, 3)})
+
     # ---- results ----------------------------------------------------------
-    windows = WINDOWS + ("circuits", "large")
+    windows = WINDOWS + ("circuits", "large", "g1")
     all_counts = add_counts([counts[w] for w in windows])
     if not rehearsal:
         idle = [f"{mod}.{op}" for mod in COUNTED for op, v in all_counts[mod].items()
