@@ -29,14 +29,35 @@ from .plonk.widgets import (
 from .srs import ReferenceString
 
 
-def field_tensor(limbs, device=None) -> torch.Tensor:
-    """(18, *batch) uint32 limb array -> int32 field tensor on `device`."""
+def _limb_tensor(limbs, lead: tuple, device) -> torch.Tensor:
     arr = np.ascontiguousarray(np.asarray(limbs))
-    if arr.shape[0] != NUM_LIMBS:
-        raise ValueError(f"expected a leading limb axis of {NUM_LIMBS}, got {arr.shape}")
+    want = (*lead, NUM_LIMBS)
+    if arr.shape[: len(want)] != want:
+        raise ValueError(f"expected leading axes {want} (coordinates, then limbs), got {arr.shape}")
     if arr.size and int(arr.max()) >> LIMB_BITS:
         raise ValueError("limbs are not canonical (a limb is >= 2^15)")
     return torch.from_numpy(arr.astype(np.int32)).to(resolve_device(device))
+
+
+def field_tensor(limbs, device=None) -> torch.Tensor:
+    """(18, *batch) uint32 limb array -> int32 field tensor on `device`."""
+    return _limb_tensor(limbs, (), device)
+
+
+def fq2_tensor(limbs, device=None) -> torch.Tensor:
+    """(2, 18, *batch) uint32 Fq2 array (the JAX package's
+    fields/quadratic.py layout) -> int32 tensor on `device`."""
+    return _limb_tensor(limbs, (2,), device)
+
+
+def fq6_tensor(limbs, device=None) -> torch.Tensor:
+    """(3, 2, 18, *batch) Fq6 array -> int32 tensor on `device`."""
+    return _limb_tensor(limbs, (3, 2), device)
+
+
+def fq12_tensor(limbs, device=None) -> torch.Tensor:
+    """(2, 3, 2, 18, *batch) Fq12 array -> int32 tensor on `device`."""
+    return _limb_tensor(limbs, (2, 3, 2), device)
 
 
 def field_array(t: torch.Tensor) -> np.ndarray:
@@ -57,6 +78,15 @@ def jacobian_points(x, y, z, inf, device=None) -> JacobianPoints:
         field_tensor(x, device), field_tensor(y, device), field_tensor(z, device),
         _mask(inf, device),
     )
+
+
+def g2_affine_points(x, y, inf, device=None) -> AffinePoints:
+    """G2 affine points from the JAX package's (2, 18, n) coordinate arrays."""
+    return AffinePoints(fq2_tensor(x, device), fq2_tensor(y, device), _mask(inf, device))
+
+
+def g2_jacobian_points(x, y, z, inf, device=None) -> JacobianPoints:
+    return JacobianPoints(fq2_tensor(x, device), fq2_tensor(y, device), fq2_tensor(z, device), _mask(inf, device))
 
 
 def reference_string(mono_x, mono_y, mono_inf, g2_x, device=None) -> ReferenceString:

@@ -257,8 +257,13 @@ class Field:
     # Misc
     # ------------------------------------------------------------------
     def random_elements(self, n: int, rng: np.random.Generator) -> torch.Tensor:
-        """Seeded host-side sampling of canonical elements, internal form."""
-        vals = [int.from_bytes(rng.bytes(32), "little") % self.p for _ in range(n)]
+        """Seeded host-side sampling of canonical elements, internal form:
+        each element 32 little-endian bytes of `rng` mod p, the JAX
+        package's values. One draw of 32 n bytes is the stream (and leaves
+        the generator's state) of n draws of 32 - each a whole number of
+        the generator's 64-bit outputs - at a fraction of the calls."""
+        raw = rng.bytes(32 * n)
+        vals = [int.from_bytes(raw[i : i + 32], "little") % self.p for i in range(0, 32 * n, 32)]
         return self.encode(vals)
 
     def get_root_of_unity(self, degree: int) -> int:

@@ -27,7 +27,7 @@ from ..config import BUILD_DIR
 from ..fields.params import FQ_PARAMS, FR_PARAMS, GLV_B2, GLV_G1, GLV_G2, GLV_MINUS_B1, R_INTERNAL, FieldParams
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("field_kernels", "butterfly", "point_kernels", "point_chains", "msm_kernels")
+SOURCES = ("field_kernels", "butterfly", "point_kernels", "point_chains", "msm_kernels", "pairing")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -142,6 +142,10 @@ _SIGNATURES = {
         "bb_window_combine": [_VP] * 8 + [_I, _I, _I, _VP, _VP],
         "bb_glv_digits": [_VP, _VP, _I, _I, _I, _L, _I, _VP, _VP, _VP],
     },
+    "pairing": {
+        "bb_miller_loop": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _L, _I, _VP, _VP, _VP, _VP, _VP],
+        "bb_final_exp": [_VP, _VP, _VP, _L, _I, _VP, _VP, _VP],
+    },
 }
 
 
@@ -220,6 +224,30 @@ def endo_consts():
     """The 9 host words of beta, Fq's cube root of unity, in internal
     Montgomery form as 30-bit limbs: K3g's psi(x, y, z) = (beta x, -y, z)."""
     return _host_words("endo", lambda: _limbs30(FQ_PARAMS.cube_root * R_INTERNAL % FQ_PARAMS.modulus))
+
+
+def tower_consts():
+    """The 174 host words of the pairing kernels' TowerConst
+    (csrc/tower.cuh): the Frobenius coefficients C1, C2 and W for k = 1, 2,
+    3 as Fq2 values in internal Montgomery form (30-bit limbs), p - 2 as
+    eight 32-bit words and its bit length, and the BN parameter z as two
+    words and its bit length - all derived from the host tower's
+    constants."""
+
+    def words():
+        from ..pairing import tower as ht
+
+        p = FQ_PARAMS.modulus
+        out = []
+        for k in (1, 2, 3):
+            for c in (ht._FROB_C1[k], ht._FROB_C2[k], ht._FROB_W[k]):
+                out += _limbs30(c[0] * R_INTERNAL % p) + _limbs30(c[1] * R_INTERNAL % p)
+        e = p - 2
+        out += [(e >> (32 * k)) & 0xFFFFFFFF for k in range(8)] + [e.bit_length()]
+        out += [ht.BN_Z & 0xFFFFFFFF, ht.BN_Z >> 32, ht.BN_Z.bit_length()]
+        return out
+
+    return _host_words("tower", words)
 
 
 def check(err: int, what: str) -> None:

@@ -87,8 +87,27 @@ plain walk (exact) on 2^12 lanes with edge lanes and on 16 against the
 host, timed at 2^16; the fused MSM at 2^12 (c = 8) and 2^15 (c = 10)
 exactly against its plain stages and, in affine form, against the
 rounds-batched route and the host oracle, 3 vectors as one launch set
-against single calls, K3a and K3b-wide timed at the fused shapes. Each
-phase prints one JSON line and any failing phase exits non-zero. Without a
+against single calls, K3a and K3b-wide timed at the fused shapes. Phase
+"pairing" (counted window "pairing", after "large", on its test_srs(2^20))
+drives the pairing's entry points: e(7G, 11G2) against the host tower,
+the bilinearity groups, and the reference's SRS gate at its own size -
+srs_on_curve_all over all 2^20 monomials, validate_srs_rlc (two MSMs at
+2^20 and one two-pairing product) and validate_srs_device over bench.py's
+2,048 sampled indices (4,096 pairings in groups of 2), all True - then the
+device and RLC checks on a copy with one sampled monomial replaced by
+[999]G and the on-curve sweep on one off the curve, all False; it fails
+unless each pairing call is one K5a miller_loop and one K5b final_exp
+launch with no chain of lane-wise K1 launches. The phase also runs the
+lane-wise tower and G2 on the card (check_tower_g2: G2 add / dbl /
+mixed_add / scalar_mul_bits, Fq12 mul / sqr / frobenius 1-3 /
+cyclotomic_sqr / sparse_mul / invert on 256 lanes), each exactly equal to
+the same call on the CPU and to the host oracle, with as many K1 launches
+as the CPU call runs Fq ops. K5a and K5b are held in the
+kernels phase exactly against their plain versions on 4,096 lanes (P and
+-P against the G2 generator, [tau]G2, a random Q and an all-identity line
+list; K5b over groups of 2 and of 1), their first lanes against the host
+tower. Each phase prints one JSON line and any failing phase exits
+non-zero. Without a
 CUDA device the script exits non-zero and prints no result.
 
 `--cpu-rehearsal` walks the same control flow at toy sizes on the CPU (plain
@@ -122,7 +141,10 @@ from barretenberg_tpu_torch.fields import fq as get_fq, fr as get_fr
 from barretenberg_tpu_torch.fields.glv import split_into_endomorphism_scalars
 from barretenberg_tpu_torch.fields.limbs import ints_to_limbs
 from barretenberg_tpu_torch.fields.params import FQ_PARAMS, FR_MODULUS, FR_PARAMS, R_INTERNAL
+from barretenberg_tpu_torch.fields.quadratic import QuadraticField
+from barretenberg_tpu_torch.fields.tower import SexticField, TwelfthField
 from barretenberg_tpu_torch.groups import AffinePoints, JacobianPoints
+from barretenberg_tpu_torch.groups.g2 import g2 as g2_curve, g2_host_to_affine, g2_jacobian_to_host
 from barretenberg_tpu_torch.groups.g1 import (
     fixed_base_digits,
     fixed_base_mul,
@@ -136,7 +158,7 @@ from barretenberg_tpu_torch.groups.g1 import (
     scalar_mul,
     scalar_mul_glv,
 )
-from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, point_kernels
+from barretenberg_tpu_torch.kernels import build, butterfly, field_kernels, msm_kernels, pairing_kernels, point_kernels
 from barretenberg_tpu_torch.msm import (
     batched_msm,
     generate_pippenger_point_table,
@@ -149,6 +171,16 @@ from barretenberg_tpu_torch.msm import (
 from barretenberg_tpu_torch.msm.naive import MSM_PIPPENGER_THRESHOLD, scalar_bits
 from barretenberg_tpu_torch.msm import wnaf
 from barretenberg_tpu_torch.msm.pippenger import endo_points, glv_entries, precomputed_digits
+from barretenberg_tpu_torch.pairing import tower as host_tower
+from barretenberg_tpu_torch.pairing.device import (
+    _prepare_lines,
+    fq12 as fq12_field,
+    pairing_check_groups,
+    reduced_ate_pairing,
+    srs_on_curve_all,
+    validate_srs_device,
+    validate_srs_rlc,
+)
 from barretenberg_tpu_torch.plonk import preprocess
 from barretenberg_tpu_torch.plonk.prover import Prover
 from barretenberg_tpu_torch.polynomials import EvaluationDomain, fft, get_domain
@@ -207,6 +239,8 @@ REPLACES = {
     "windowed_walk": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add, dbl, add) in the lax.scans of barretenberg_tpu/groups/group.py:331 and :373 (_build_mul_table, _windowed_walk)",
     "bucket_accumulate_fused": "barretenberg_tpu/kernels/point_kernels.py:179 (mixed_add) in the lax.scan of barretenberg_tpu/msm/pippenger.py:191, over the fused schedule's one bucket set (:380)",
     "bucket_reduce_wide_fused": "barretenberg_tpu/kernels/point_kernels.py:179 (add) in barretenberg_tpu/msm/pippenger.py:82 and :124 (_suffix_scan_points_seg), over the fused schedule's one bucket set (:380-383)",
+    "miller_loop": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add, sub) in the lax.scan of fq12 sqr / sparse_mul of barretenberg_tpu/pairing/device.py:132-152 (_miller_jit)",
+    "final_exp": "barretenberg_tpu/kernels/field_kernels.py:64 (mont_mul, add, sub) in the fori_loop + lax.switch of fq12 ops of barretenberg_tpu/pairing/device.py:193-243 (_final_exp_jit), with the group product of :259-261 (_group_product_jit, the tree of :107-129 _tree_mul_last_axis)",
 }
 # K4's 32-bit multiply-adds per scalar: its four limb products at the
 # widths it is compiled with (9 x 3, 9 x 5, 3 x 5 and 5 x 3 wide multiplies
@@ -1781,7 +1815,115 @@ def check_fused_msm(device, sizes: tuple, rng, records: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels}
+# the pairing's chain kernels (K5a miller_loop, K5b final_exp)
+# ---------------------------------------------------------------------------
+SRS_SECRET = 0xA11CE  # test_srs's default secret: [tau]G2 of its SRS is one of K5a's Q
+PAIR_LANES = 4096  # the sampled SRS check's lanes: 2,048 groups of 2
+PAIR_SAMPLE = 2048  # bench.py's bench_srs_check sample (np.random.default_rng(99))
+IDENTITY_LINES = [((1, 0), (0, 0), (0, 0))] * (len(pairing_kernels.NAF) + 2
+                                               + sum(d != 0 for d in pairing_kernels.NAF))
+
+
+def pairing_inputs(device, lanes: int, rng):
+    """K5a's inputs as ``_prepare_lines`` makes them, ``lanes`` / 2 groups of
+    two: group j pairs P_j and -P_j with one Q - the G2 generator,
+    test_srs's [tau]G2, a random [k]G2, or a line list of identity rows
+    (o = 1, vw = vv = 0), in turn - so every group's product is one. P_j
+    cycles over 64 random points [k]G. Returns (inputs, step indices, host
+    groups)."""
+    ks = rand_values(64, FR_MODULUS, rng)
+    pts = [host_curve.g1_mul(host_curve.G1_GENERATOR, k or 1) for k in ks]
+    qs = [host_curve.G2_GENERATOR, host_curve.g2_mul(host_curve.G2_GENERATOR, SRS_SECRET % FR_MODULUS),
+          host_curve.g2_mul(host_curve.G2_GENERATOR, rand_values(1, FR_MODULUS, rng)[0] or 1)]
+    lists = [host_tower.precompute_miller_lines(q) for q in qs] + [IDENTITY_LINES]
+    groups = []
+    for j in range(lanes // 2):
+        p, slot = pts[j % len(pts)], j % 4
+        q = qs[slot] if slot < 3 else None
+        groups.append([(p, q, lists[slot]), (host_curve.g1_neg(p), q, lists[slot])])
+    prepared, steps, _ = _prepare_lines(groups, device)
+    return prepared, steps, groups
+
+
+def miller_bound(lanes: int, real_lanes: int, nq: int, n_lines: int):
+    """K5a's bound: the line table read once, each lane's Q index, P and f
+    moved once; MILLER_PRODUCTS a lane that pairs with a real Q (a lane
+    whose lines are all the identity row needs none: its f stays one)."""
+    return bound(nq * n_lines * pairing_kernels.LINE_WORDS * 4 + lanes * (4 + 2 * ELEM_BYTES + 12 * ELEM_BYTES),
+                 real_lanes * pairing_kernels.MILLER_PRODUCTS * IMAD_PER_FIELD_MUL)
+
+
+def final_exp_bound(lanes: int, gsize: int, real_groups: int):
+    """K5b's bound: each lane's Miller value read once, each group's result
+    written once; per group the fold's g - 1 Fq12 products and
+    FINAL_EXP_PRODUCTS, in the groups whose Miller values are not all one
+    (the final exponentiation of one needs no work)."""
+    groups = lanes // gsize
+    products = real_groups * (pairing_kernels.FINAL_EXP_PRODUCTS + (gsize - 1) * pairing_kernels.F12_MUL)
+    return bound((lanes + groups) * 12 * ELEM_BYTES, products * IMAD_PER_FIELD_MUL)
+
+
+def check_pairing_kernels(device, lanes: int, lanes_single: int, rng, records: list) -> None:
+    """K5a miller_loop and K5b final_exp against their plain versions on the
+    card (exact) on `lanes` lanes (pairing_inputs: P and -P against the same
+    Q, the generator and [tau]G2 among the Q, lanes whose lines are all the
+    identity row), K5b over groups of 2 and, on the first `lanes_single`
+    lanes, of 1; the identity lanes' Miller value must be one, every group
+    of two's pairing product one, and the first lanes equal the host tower's
+    Miller loop and final exponentiation. Both timed at `lanes` lanes (K5b
+    as the sampled SRS check runs it, groups of 2)."""
+    (table, q_idx, px, py), (i1, i2), groups = pairing_inputs(device, lanes, rng)
+    one = host_tower.FQ12_ONE
+    run_ml = lambda: pairing_kernels.miller_loop(table, q_idx, px, py, i1, i2)
+    f = run_ml()
+    want_f, ml_plain_ms = timed_once(lambda: pairing_kernels.plain_miller_loop(table, q_idx, px, py, i1, i2), device)
+    ml_err = max_abs_err([f], [want_f])
+    tower = TwelfthField(SexticField(QuadraticField(get_fq("cpu"))))
+    f_host = tower.decode(f.cpu())
+    if ml_err:
+        fail("kernels", f"miller_loop disagrees with its plain version at {lanes} lanes")
+    if any(f_host[lane] != one for lane in range(lanes) if (lane // 2) % 4 == 3):
+        fail("kernels", "miller_loop moved f off one on lanes whose lines are all the identity row")
+    for lane in range(6):
+        p, _, lines = groups[lane // 2][lane % 2]
+        if f_host[lane] != host_tower.miller_loop_precomputed([p], [lines]):
+            fail("kernels", f"miller_loop disagrees with the host tower on lane {lane}")
+    run_fe = lambda: pairing_kernels.final_exp(f, 2)
+    e = run_fe()
+    want_e, fe_plain_ms = timed_once(lambda: pairing_kernels.plain_final_exp(f, 2), device)
+    fe_err = max_abs_err([e], [want_e])
+    head = f[..., :lanes_single].contiguous()
+    e1 = pairing_kernels.final_exp(head, 1)
+    fe_err = max(fe_err, max_abs_err([e1], [pairing_kernels.plain_final_exp(head, 1)]))
+    if fe_err:
+        fail("kernels", f"final_exp disagrees with its plain version ({lanes} lanes in pairs, {lanes_single} single)")
+    if any(v != one for v in tower.decode(e.cpu())):
+        fail("kernels", "final_exp gave a group of P and -P against one Q a product other than one")
+    e1_host = tower.decode(e1.cpu())
+    for lane in range(4):
+        if e1_host[lane] != host_tower.final_exponentiation(f_host[lane]):
+            fail("kernels", f"final_exp disagrees with the host tower on lane {lane}")
+    path = "the sampled SRS check's shape: 2,048 groups of 2 lanes, one thread a lane (a group in K5b)"
+    real_groups = sum(grp[0][1] is not None for grp in groups)
+    for name, err, run, plain_ms, (b_ms, b_by), work, shape in (
+            ("miller_loop", ml_err, run_ml, ml_plain_ms,
+             miller_bound(lanes, 2 * real_groups, table.shape[0], table.shape[1]),
+             pairing_kernels.MILLER_CHAIN_PRODUCTS, [lanes]),
+            ("final_exp", fe_err, run_fe, fe_plain_ms, final_exp_bound(lanes, 2, real_groups),
+             pairing_kernels.FINAL_EXP_CHAIN_PRODUCTS + pairing_kernels.F12_MUL, [lanes // 2, 2])):
+        ms = time_ms(run, device, 3)
+        records.append({
+            "name": name, "module": "pairing", "op": name, "route": "cuda",
+            "source": "barretenberg_tpu_torch/csrc/pairing.cu", "replaces": REPLACES[name], "shape": shape,
+            "path": path, "max_abs_err": err, "ms": ms, "device_ms": device_ms(run, device, f"{name}_kernel", 3),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "real_lanes": 2 * real_groups, "chain_products": work, "us_per_chain_product": ms * 1e3 / work,
+        })
+
+
+# ---------------------------------------------------------------------------
+COUNTED = {"field": field_kernels, "butterfly": butterfly, "point": point_kernels, "msm": msm_kernels,
+           "pairing": pairing_kernels}
 
 
 WINDOWS = ("golden", "small", "srs", "prove")  # the counted windows, in the order they run
@@ -2217,6 +2359,231 @@ def run_g1_surface(device, rehearsal: bool, rng):
     return record, window, single, faults, bad
 
 
+# The pairing and the SRS checks as a user calls them (window "pairing"):
+# per call the pairing kernels' launches - one K5a and one K5b per pairing
+# call - and at most PAIRING_FIELD_MAX lane-wise K1 launches (an Fq12 op run
+# as K1 launches would take 54 products alone); the on-curve sweep is four
+# K1 launches, each RLC check two Pippenger MSMs (one K4, sort, K3a,
+# K3b-wide and K3c each at 2^20 points).
+PAIRING_CALL = {("pairing", "miller_loop"): 1, ("pairing", "final_exp"): 1}
+MSM_PAIR = {("msm", "glv_digits"): 2, ("msm", "bucket_accumulate"): 2, ("msm", "bucket_reduce_wide"): 2,
+            ("msm", "window_combine"): 2}
+ON_CURVE = {("pairing", "miller_loop"): 0, ("pairing", "final_exp"): 0, ("field", "sqr"): 2, ("field", "mul"): 1,
+            ("field", "add"): 1}
+PAIRING_CALLS = {
+    "known_answer": PAIRING_CALL,
+    "bilinearity": PAIRING_CALL,
+    "srs_on_curve_all": ON_CURVE,
+    "validate_srs_rlc": {**PAIRING_CALL, **MSM_PAIR},
+    "validate_srs_device": PAIRING_CALL,
+    "corrupted_device": PAIRING_CALL,
+    "corrupted_rlc": {**PAIRING_CALL, **MSM_PAIR},
+    "corrupted_on_curve": ON_CURVE,
+}
+PAIRING_FIELD_MAX = 32
+CORRUPT_K = 999  # the corrupted SRS holds [999]G at one sampled index
+
+
+def pairing_faults(name: str, counts: dict, large: bool) -> list:
+    want = dict(PAIRING_CALLS[name])
+    if not large:  # below 4096 points the RLC's MSMs are naive (K3d), not Pippenger
+        want = {k: v for k, v in want.items() if k[0] != "msm"}
+    faults = [f"{name}: {mod}.{op}={counts[mod][op]} (want {v})" for (mod, op), v in want.items()
+              if counts[mod][op] != v]
+    lanewise = sum(counts["field"][op] for op in ("mul", "sqr", "add", "sub"))
+    if lanewise > PAIRING_FIELD_MAX:
+        faults.append(f"{name}: {lanewise} lane-wise K1 launches (want at most {PAIRING_FIELD_MAX})")
+    return faults
+
+
+def corrupted_srs(srs, index: int, off_curve: bool):
+    """A copy of `srs` with monomial `index` replaced by [CORRUPT_K]G, or
+    (off_curve) by that point with y + 1."""
+    x, y = host_curve.g1_mul(host_curve.G1_GENERATOR, CORRUPT_K)
+    fq = get_fq(srs.monomials.x.device)
+    mono = AffinePoints(srs.monomials.x.clone(), srs.monomials.y.clone(), srs.monomials.inf.clone())
+    mono.x[:, index] = fq.encode([x])[:, 0]
+    mono.y[:, index] = fq.encode([y + 1 if off_curve else y])[:, 0]
+    return srs_cache.ReferenceString(mono, srs.g2_x, srs.degree)
+
+
+def run_pairing(device, n: int, rng):
+    """The pairing's entry points on test_srs(n) (the large phase's SRS),
+    each call with the counts set to 0 just before it and read just after:
+    the host oracle's known answer e(7G, 11G2), the bilinearity groups,
+    srs_on_curve_all, validate_srs_rlc and validate_srs_device over
+    bench.py's sample of PAIR_SAMPLE indices (np.random.default_rng(99)),
+    then the three checks on a corrupted copy. Returns (record, the window's
+    summed counts and single-lane counts, faults, wrong answers)."""
+    srs = test_srs(n, device=device)
+    idx = sorted(np.random.default_rng(99).choice(n - 1, size=min(PAIR_SAMPLE, n - 1), replace=False).tolist())
+    bad_index = idx[len(idx) // 2]
+    bad = corrupted_srs(srs, bad_index, False)
+    off = corrupted_srs(srs, bad_index, True)
+    p7 = host_curve.g1_mul(host_curve.G1_GENERATOR, 7)
+    q11 = host_curve.g2_mul(host_curve.G2_GENERATOR, 11)
+    pa, qb = host_curve.g1_mul(host_curve.G1_GENERATOR, 6), host_curve.g2_mul(host_curve.G2_GENERATOR, 13)
+    pab = host_curve.g1_mul(host_curve.G1_GENERATOR, 6 * 13)
+    bil = [[(pa, qb), (host_curve.g1_neg(pab), host_curve.G2_GENERATOR)], [(pa, qb), (pab, host_curve.G2_GENERATOR)]]
+    calls = {
+        "known_answer": (lambda: reduced_ate_pairing(p7, q11, device), host_tower.reduced_ate_pairing_batch([(p7, q11)])),
+        "bilinearity": (lambda: pairing_check_groups(bil, device), [True, False]),
+        "srs_on_curve_all": (lambda: srs_on_curve_all(srs), True),
+        "validate_srs_rlc": (lambda: validate_srs_rlc(srs), True),
+        "validate_srs_device": (lambda: validate_srs_device(srs, idx), True),
+        "corrupted_device": (lambda: validate_srs_device(bad, idx), False),
+        "corrupted_rlc": (lambda: validate_srs_rlc(bad), False),
+        "corrupted_on_curve": (lambda: srs_on_curve_all(off), False),
+    }
+    out, ms, parts, singles, faults, wrong = {}, {}, [], [], [], []
+    for name, (fn, want) in calls.items():
+        reset_counts()
+        out[name], ms[name] = timed_once(fn, device)
+        parts.append(read_counts())
+        singles.append(read_single_lane())
+        faults += pairing_faults(name, parts[-1], n >= MSM_PIPPENGER_THRESHOLD)
+        if out[name] != want:
+            wrong.append(f"{name} gave {out[name] if isinstance(out[name], (bool, list)) else 'another value'}"
+                         f" (want {want if isinstance(want, (bool, list)) else 'the host oracle'})")
+    record = {"phase": "pairing", "ok": True, "n": n, "sampled_indices": len(idx), "corrupted_index": bad_index,
+              "call_ms": ms, "on_curve_seconds": round(ms["srs_on_curve_all"] / 1e3, 4),
+              "rlc_seconds": round(ms["validate_srs_rlc"] / 1e3, 4),
+              "sampled_seconds": round(ms["validate_srs_device"] / 1e3, 4),
+              "results": {k: v for k, v in out.items() if isinstance(v, (bool, list))}}
+    return record, add_counts(parts), add_counts(singles), faults, wrong
+
+
+# The lane-wise tower and G2 (fields/quadratic.py, fields/tower.py,
+# groups/g2.py) on the card: each op below runs on TOWER_LANES lanes on
+# the card and on the CPU, exactly equal, its lanes equal to the host
+# oracle, and it launches as many K1 kernels of each kind as the CPU call
+# runs plain Fq ops - one K1 launch an Fq op - and no other kernel.
+TOWER_LANES = 256
+G2_SCALAR_BITS = 32
+
+
+def count_plain_fq_ops(fn):
+    """fn()'s result and the Fq ops, by K1 op, that it ran through K1's
+    plain versions (a CPU call)."""
+    calls = dict.fromkeys(("mul", "sqr", "add", "sub", "pow"), 0)
+    plain, plain_pow = field_kernels.plain, field_kernels.plain_pow
+
+    def counted(params, op, a, b=None):
+        calls[op] += 1
+        return plain(params, op, a, b)
+
+    def counted_pow(params, a, exponent):
+        calls["pow"] += 1
+        return plain_pow(params, a, exponent)
+
+    field_kernels.plain, field_kernels.plain_pow = counted, counted_pow
+    try:
+        return fn(), calls
+    finally:
+        field_kernels.plain, field_kernels.plain_pow = plain, plain_pow
+
+
+def tower_g2_inputs(lanes: int, bits: int, rng):
+    """Host values: G2 points P, Q over 32 random multiples of the generator
+    with edge lanes (Q = P, Q = -P, P, Q or both at infinity), `bits`-bit
+    scalars (0 and 1 in front), random Fq12 values a, b, cyclotomic values
+    and sparse lines (o, vw, vv)."""
+    pts = [host_curve.g2_mul(host_curve.G2_GENERATOR, k or 1) for k in rand_values(32, FR_MODULUS, rng)]
+    ps = [pts[lane % 32] for lane in range(lanes)]
+    qs = [pts[(lane * 7 + 3) % 32] for lane in range(lanes)]
+    qs[0], qs[1] = ps[0], host_curve.g2_neg(ps[1])
+    ps[2], qs[3], ps[4], qs[4] = None, None, None, None
+    ks = [v % (1 << bits) for v in rand_values(lanes, FR_MODULUS, rng)]
+    ks[:2] = [0, 1]
+    q = host_tower.P
+
+    def f2s(n):
+        vals = rand_values(2 * n, q, rng)
+        return [tuple(vals[2 * i:2 * i + 2]) for i in range(n)]
+
+    def f12s(n):
+        vals = f2s(6 * n)
+        return [(tuple(vals[6 * i:6 * i + 3]), tuple(vals[6 * i + 3:6 * i + 6])) for i in range(n)]
+
+    a, b = f12s(lanes), f12s(lanes)
+    cyc = []
+    for x in a:
+        e = host_tower.fq12_mul(host_tower.fq12_conj(x), host_tower.fq12_inv(x))
+        cyc.append(host_tower.fq12_mul(e, host_tower.fq12_frobenius(e, 2)))
+    return ps, qs, ks, a, b, cyc, (f2s(lanes), f2s(lanes), f2s(lanes))
+
+
+def check_tower_g2(device, lanes: int, bits: int, rng):
+    """The tower and G2 ops on `device` against the same calls on the CPU
+    and the host oracle, each call counted alone. Returns (record, launch
+    faults, wrong answers)."""
+    ps, qs, ks, a, b, cyc, (o, vw, vv) = tower_g2_inputs(lanes, bits, rng)
+    ht, hc = host_tower, host_curve
+    zero2 = (0, 0)
+    want = {
+        "g2_add": [hc.g2_add(p, q) for p, q in zip(ps, qs)],
+        "g2_dbl": [hc.g2_add(p, p) for p in ps],
+        "g2_mixed_add": [hc.g2_add(p, q) for p, q in zip(ps, qs)],
+        "g2_scalar_mul_bits": [hc.g2_mul(p, k) if p is not None else None for p, k in zip(ps, ks)],
+        "fq12_mul": [ht.fq12_mul(x, y) for x, y in zip(a, b)],
+        "fq12_sqr": [ht.fq12_sqr(x) for x in a],
+        **{f"fq12_frobenius_{k}": [ht.fq12_frobenius(x, k) for x in a] for k in (1, 2, 3)},
+        "fq12_cyclotomic_sqr": [ht.fq12_cyclotomic_sqr(x) for x in cyc],
+        "fq12_sparse_mul": [ht.fq12_mul(x, ((u, zero2, w), (zero2, v, zero2))) for x, u, v, w in zip(a, o, vw, vv)],
+        "fq12_invert": [ht.fq12_inv(x) for x in a],
+    }
+
+    def setup(dev):
+        g2c, f12 = g2_curve(dev), fq12_field(dev)
+        f2 = f12.fq2
+        pa, qa = g2_host_to_affine(ps, dev), g2_host_to_affine(qs, dev)
+        bit_rows = torch.tensor([[(k >> (bits - 1 - i)) & 1 for k in ks] for i in range(bits)], dtype=torch.int32,
+                                device=dev)
+        ta, tb, tc = f12.encode(a), f12.encode(b), f12.encode(cyc)
+        lo, lw, lv = f2.encode(o), f2.encode(vw), f2.encode(vv)
+        pj, qj = g2c.to_jacobian(pa), g2c.to_jacobian(qa)
+        return {
+            "g2_add": lambda: g2c.add(pj, qj),
+            "g2_dbl": lambda: g2c.dbl(pj),
+            "g2_mixed_add": lambda: g2c.mixed_add(pj, qa),
+            "g2_scalar_mul_bits": lambda: g2c.scalar_mul_bits(pa, bit_rows),
+            "fq12_mul": lambda: f12.mul(ta, tb),
+            "fq12_sqr": lambda: f12.sqr(ta),
+            **{f"fq12_frobenius_{k}": (lambda k=k: f12.frobenius(ta, k)) for k in (1, 2, 3)},
+            "fq12_cyclotomic_sqr": lambda: f12.cyclotomic_sqr(tc),
+            "fq12_sparse_mul": lambda: f12.sparse_mul(ta, lo, lw, lv),
+            "fq12_invert": lambda: f12.invert(ta),
+        }
+
+    on_card, on_cpu = setup(device), setup(torch.device("cpu"))
+    f12_cpu = fq12_field("cpu")
+    record, faults, wrong = {}, [], []
+    for name, run in on_card.items():
+        run()  # warm-up, uncounted
+        reset_counts()
+        got, ms = timed_once(run, device)
+        counts = read_counts()
+        ref, calls = count_plain_fq_ops(on_cpu[name])
+        if name.startswith("g2_"):
+            got_t, ref_t = [got.x.cpu(), got.y.cpu(), got.z.cpu()], [ref.x, ref.y, ref.z]
+            same = max_abs_err(got_t, ref_t) == 0 and torch.equal(got.inf.cpu(), ref.inf)
+            host = g2_jacobian_to_host(ref)
+        else:
+            same = max_abs_err([got.cpu()], [ref]) == 0
+            host = f12_cpu.decode(ref)
+        if not same:
+            wrong.append(f"{name} on the card differs from the same call on the CPU")
+        if host != want[name]:
+            wrong.append(f"{name} disagrees with the host oracle")
+        k1 = {op: counts["field"][op] for op in calls}
+        others = {f"{mod}.{op}": v for mod, ops in counts.items() for op, v in ops.items()
+                  if v and not (mod == "field" and op in calls)}
+        if k1 != calls or others:
+            faults.append(f"{name}: K1 launches {k1}, the CPU call's Fq ops {calls}, other launches {others}")
+        record[name] = {"call_ms": ms, "k1_launches": sum(k1.values())}
+    return {"lanes": lanes, "scalar_bits": bits, "ops": record}, faults, wrong
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-n", type=int, default=16, help="gates of the main-path circuit")
@@ -2298,6 +2665,8 @@ def main() -> int:
     # points (K3a and K3b-wide timed at the 2^15 shapes)
     check_windowed_walk(device, 16 if rehearsal else 1 << 12, 32 if rehearsal else 1 << 16, rng, records)
     check_fused_msm(device, (6, 7) if rehearsal else (12, 15), rng, records)
+    # the pairing's chain kernels at the sampled SRS check's 4,096 lanes
+    check_pairing_kernels(device, 16 if rehearsal else PAIR_LANES, 8 if rehearsal else 256, rng, records)
     wrong = [r["name"] for r in records if r["max_abs_err"] != 0]
     if wrong:
         fail("kernels", f"timed kernels disagree with their plain versions: {wrong}")
@@ -2437,7 +2806,21 @@ def main() -> int:
     emit({"phase": "large", "ok": True, **{k: v for k, v in large.items() if k != "faults"},
           "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None})
 
-    # ---- phase 9: the G1 library surface (window "g1") ---------------------
+    # ---- phase 9: the pairing and the SRS checks (window "pairing") ---------
+    # on the large phase's test_srs(2^20): the known answer, the bilinearity
+    # groups, the on-curve sweep, the RLC check and the sampled per-index
+    # check (one K5a and one K5b a pairing call), then a corrupted copy
+    t0 = time.perf_counter()
+    pair_record, counts["pairing"], single["pairing"], faults, bad = run_pairing(device, 1 << (4 if rehearsal else LARGE_LOG2N), rng)
+    tower_record, faults_tg, bad_tg = check_tower_g2(device, 8 if rehearsal else TOWER_LANES,
+                                                      8 if rehearsal else G2_SCALAR_BITS, rng)
+    bad += bad_tg + ([] if rehearsal else faults + faults_tg)
+    if bad:
+        fail("pairing", "; ".join(bad))
+    emit({**pair_record, "seconds": round(time.perf_counter() - t0, 3), "launches": counts["pairing"],
+          "tower_g2": tower_record})
+
+    # ---- phase 10: the G1 library surface (window "g1") --------------------
     # the fused Pippenger schedule through msm (2^12) and batched_msm (3 x
     # 2^15), the windowed and GLV scalar multiplications (K3g), scalar_mul,
     # hash_to_curve and random_points_device, each call counted alone
@@ -2449,7 +2832,7 @@ def main() -> int:
     emit({**g1_record, "seconds": round(time.perf_counter() - t0, 3)})
 
     # ---- results ----------------------------------------------------------
-    windows = WINDOWS + ("circuits", "large", "g1")
+    windows = WINDOWS + ("circuits", "large", "pairing", "g1")
     all_counts = add_counts([counts[w] for w in windows])
     if not rehearsal:
         idle = [f"{mod}.{op}" for mod in COUNTED for op, v in all_counts[mod].items()
