@@ -73,18 +73,30 @@ field_pow_kernel(const uint32_t* __restrict__ a, long a_ls, long a_ns,
 // association gives the same limbs: the tiles, warps and threads below
 // group the combines as they like and still equal the plain version's
 // Hillis-Steele levels bit for bit.
+//
+// What bounds a scan on the card is the dependent chain of combines of a
+// tile, since a combine costs a warp ~1,000 cycles of issue (one or two
+// fe_mul) and the card has 528 warp schedulers: at 2^16 the whole scan is
+// ~8 products a scheduler, while a tile's chain is its thread's items, the
+// warp's shuffle levels, the warps' totals, the look-back and the final
+// combines. The plan (the wrapper's scan_plan) picks the tile from the row:
+// a row of at most 32 elements is one warp of one element a lane; one of at
+// most SCAN_THREADS x SCAN_MAX_ITEMS is one CTA with the fewest items a
+// thread that cover it; neither has a look-back or flags. Longer rows take
+// tiles of SCAN_THREADS threads of 4 items while all tiles fit on the SMs
+// at once (2^16: 128 tiles on 132 SMs), else of SCAN_MAX_ITEMS, chained by
+// a decoupled look-back in which each lane of warp 0 folds a block of up to
+// SCAN_LOOK_ITEMS earlier tiles, so a window covers 128 tiles and a tile
+// reaches its prefix in about 8 combines even while no earlier tile has
+// published its inclusive prefix yet.
 enum ScanMode { SCAN_PROD = 0, SCAN_AFFINE = 1 };
 
-#define SCAN_THREADS 128
-#define SCAN_ITEMS 8                              // consecutive elements per thread
-#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)     // elements per CTA
+#define SCAN_THREADS 128                          // threads of a tiled CTA
+#define SCAN_MAX_ITEMS 8                          // consecutive elements per thread, at most
+#define SCAN_LOOK_ITEMS 4                         // earlier tiles a look-back lane folds per step
 #define SCAN_WARPS (SCAN_THREADS / 32)
 #define SCAN_PAD(e) ((e) + ((e) >> 5))            // one spare word per 32: conflict-free
-#define SCAN_SLOTS SCAN_PAD(SCAN_TILE + 16)       // the tile, then 16 slots of CTA totals
-#define SLOT_WTOT SCAN_TILE                       // + w: warp w's total
-#define SLOT_WEX (SCAN_TILE + SCAN_WARPS)         // + w: what precedes warp w in the tile
-#define SLOT_AGG (SCAN_TILE + 2 * SCAN_WARPS)     // the tile's total
-#define SLOT_EXCL (SLOT_AGG + 1)                  // what precedes the tile in its row
+#define SCAN_EXTRA 16                             // slots after the tile: warp totals, prefixes
 enum { FLAG_NONE = 0, FLAG_AGG = 1, FLAG_INC = 2 };
 
 template <int MODE>
@@ -109,51 +121,54 @@ __device__ __forceinline__ Sv<MODE> sv_combine(const Sv<MODE>& f, const Sv<MODE>
     return r;
 }
 
-// Shared memory: word k of component c of slot e at sm[(c * 9 + k) * SCAN_SLOTS + SCAN_PAD(e)].
+// Shared memory: word k of component c of slot e at sm[(c * 9 + k) * slots + SCAN_PAD(e)].
 template <int MODE>
-__device__ __forceinline__ void sv_put(uint32_t* sm, int e, const Sv<MODE>& v) {
+__device__ __forceinline__ void sv_put(uint32_t* sm, int slots, int e, const Sv<MODE>& v) {
     const int p = SCAN_PAD(e);
 #pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) sm[k * SCAN_SLOTS + p] = v.m.v[k];
+    for (int k = 0; k < FE_LIMBS; ++k) sm[k * slots + p] = v.m.v[k];
     if (MODE == SCAN_AFFINE) {
 #pragma unroll
-        for (int k = 0; k < FE_LIMBS; ++k) sm[(FE_LIMBS + k) * SCAN_SLOTS + p] = v.b.v[k];
+        for (int k = 0; k < FE_LIMBS; ++k) sm[(FE_LIMBS + k) * slots + p] = v.b.v[k];
     }
 }
 
 template <int MODE>
-__device__ __forceinline__ Sv<MODE> sv_get(const uint32_t* sm, int e) {
+__device__ __forceinline__ Sv<MODE> sv_get(const uint32_t* sm, int slots, int e) {
     const int p = SCAN_PAD(e);
     Sv<MODE> v;
 #pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) v.m.v[k] = sm[k * SCAN_SLOTS + p];
+    for (int k = 0; k < FE_LIMBS; ++k) v.m.v[k] = sm[k * slots + p];
     if (MODE == SCAN_AFFINE) {
 #pragma unroll
-        for (int k = 0; k < FE_LIMBS; ++k) v.b.v[k] = sm[(FE_LIMBS + k) * SCAN_SLOTS + p];
+        for (int k = 0; k < FE_LIMBS; ++k) v.b.v[k] = sm[(FE_LIMBS + k) * slots + p];
     }
     return v;
 }
 
-template <int MODE>
-__device__ __forceinline__ Sv<MODE> sv_shfl_up(const Sv<MODE>& v, int d) {
+// __shfl_up_sync (UP) or __shfl_down_sync of every word.
+template <int MODE, bool UP>
+__device__ __forceinline__ Sv<MODE> sv_shfl(const Sv<MODE>& v, int d) {
     Sv<MODE> r;
 #pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) r.m.v[k] = __shfl_up_sync(0xffffffffu, v.m.v[k], d);
+    for (int k = 0; k < FE_LIMBS; ++k)
+        r.m.v[k] = UP ? __shfl_up_sync(0xffffffffu, v.m.v[k], d) : __shfl_down_sync(0xffffffffu, v.m.v[k], d);
     if (MODE == SCAN_AFFINE) {
 #pragma unroll
-        for (int k = 0; k < FE_LIMBS; ++k) r.b.v[k] = __shfl_up_sync(0xffffffffu, v.b.v[k], d);
+        for (int k = 0; k < FE_LIMBS; ++k)
+            r.b.v[k] = UP ? __shfl_up_sync(0xffffffffu, v.b.v[k], d) : __shfl_down_sync(0xffffffffu, v.b.v[k], d);
     }
     return r;
 }
 
 template <int MODE>
-__device__ __forceinline__ Sv<MODE> sv_shfl_down(const Sv<MODE>& v, int d) {
+__device__ __forceinline__ Sv<MODE> sv_shfl_idx(const Sv<MODE>& v, int src) {
     Sv<MODE> r;
 #pragma unroll
-    for (int k = 0; k < FE_LIMBS; ++k) r.m.v[k] = __shfl_down_sync(0xffffffffu, v.m.v[k], d);
+    for (int k = 0; k < FE_LIMBS; ++k) r.m.v[k] = __shfl_sync(0xffffffffu, v.m.v[k], src);
     if (MODE == SCAN_AFFINE) {
 #pragma unroll
-        for (int k = 0; k < FE_LIMBS; ++k) r.b.v[k] = __shfl_down_sync(0xffffffffu, v.b.v[k], d);
+        for (int k = 0; k < FE_LIMBS; ++k) r.b.v[k] = __shfl_sync(0xffffffffu, v.b.v[k], src);
     }
     return r;
 }
@@ -190,41 +205,105 @@ struct ScanArgs {
     uint32_t* out;      // (18, rows, n), contiguous
     int rows;
     long n;
-    int tiles;          // tiles per row
+    int items;          // consecutive elements per thread
+    int tiles;          // tiles per row; 1: one CTA a row, no look-back
+    int slots;          // words between two limb rows of shared memory
     int reverse;        // 1: suffix scan (the product only)
-    int* counter;       // the next tile to take, zeroed before the launch
-    int* flags;         // (rows * tiles) FLAG_*, zeroed before the launch
-    uint32_t* agg;      // (rows * tiles, 18) tile totals
-    uint32_t* inc;      // (rows * tiles, 18) inclusive prefixes
+    int* state;         // tiles > 1: [0] the next tile to take, [1] CTAs done,
+                        // [2 + i] tile i's FLAG_*; zero at launch, left zero
+    uint32_t* agg;      // (rows * tiles, 18) tile totals, in a buffer of their
+    uint32_t* inc;      // (rows * tiles, 18) inclusive prefixes    own (no flag
+                        // of a later, longer launch may land on stale data)
 };
 
-// One CTA per tile of SCAN_TILE consecutive elements of one row. Tiles are
-// taken in the order CTAs start (an atomic counter), so every tile a CTA
-// waits on belongs to a CTA already running. The CTA loads its tile into
-// shared memory (coalesced), each thread scans its SCAN_ITEMS consecutive
-// elements serially, the thread totals are scanned across each warp with
-// shuffles and the warp totals by one thread; the tile's total is
-// published at once, and warp 0 then looks back over the tiles before it
-// (decoupled look-back: 32 tiles a step, each read as its inclusive prefix
-// if published, else its total, stopping at the nearest inclusive prefix)
-// for what precedes the tile, and publishes the tile's own inclusive
-// prefix. Every element then takes its prefix with one combine, and the
-// tile is stored coalesced.
+// Warp 0 of tile t > 0 of a row: what precedes the tile. Lane L folds the
+// `per` tiles look - L per, ..., look - L per - per + 1 (nearest first,
+// stopping at an inclusive prefix or at the row's start); lanes past the
+// first that stopped take the identity, the warp folds the lanes (lane L
+// holds later tiles than lane L + 1), and the next step starts below the
+// window unless a lane stopped.
+template <int MODE>
+__device__ __forceinline__ Sv<MODE> scan_look_back(const ScanArgs& s, int row0, int t, const Sv<MODE>& ident,
+                                                   const FieldConst& fc) {
+    const int lane = threadIdx.x & 31;
+    volatile int* flags = s.state + 2;
+    Sv<MODE> excl = ident;
+    int look = t - 1;
+#pragma unroll 1
+    while (true) {
+        const int per = min((look + 32) / 32, SCAN_LOOK_ITEMS);
+        const int hi = look - lane * per;
+        Sv<MODE> v = ident;
+        bool stop = false;
+#pragma unroll 1
+        for (int j = 0; j < per; ++j) {
+            const int k = hi - j;
+            if (k < 0) {
+                stop = true;
+                break;
+            }
+            // the tile's CTA is running and publishes within microseconds; a
+            // flag still unset after ~2^22 polls is a fault: abort the
+            // launch rather than hang the card
+            int f, polls = 0;
+            do {
+                f = flags[row0 + k];
+                if (++polls == (1 << 22)) __trap();
+            } while (f == FLAG_NONE);
+            __threadfence();
+            v = sv_combine<MODE>(sv_read<MODE>((f == FLAG_INC ? s.inc : s.agg) + (long)(row0 + k) * 2 * FE_LIMBS), v, fc);
+            if (f == FLAG_INC) {
+                stop = true;
+                break;
+            }
+        }
+        const unsigned stops = __ballot_sync(0xffffffffu, stop);
+        const int first = stops ? __ffs(stops) - 1 : 31;  // lanes 0..first count
+        if (lane > first) v = ident;
+#pragma unroll 1
+        for (int d = 1; d <= first; d <<= 1) {
+            const Sv<MODE> o = sv_shfl<MODE, false>(v, d);
+            if (lane + d < 32) v = sv_combine<MODE>(o, v, fc);
+        }
+        excl = sv_combine<MODE>(v, excl, fc);  // lane 0's is the one kept
+        if (stops) return excl;
+        look -= 32 * per;
+    }
+}
+
+// One CTA per tile of blockDim.x x items consecutive elements of one row.
+// Chained tiles (tiles > 1) are taken in the order CTAs start (an atomic
+// counter), so every tile a CTA waits on belongs to a CTA already running.
+// The CTA loads its tile into shared memory (coalesced), each thread scans
+// its items serially, the thread totals are scanned across each warp with
+// shuffles and warp 0 scans the warp totals by shuffles; a chained tile
+// publishes its total at once, warp 0 looks back for what precedes it
+// (scan_look_back) and publishes its inclusive prefix. Every element then
+// takes its prefix with one combine and the tile is stored coalesced. The
+// last CTA of a chained launch to finish clears the flags and counters for
+// the next launch on the stream.
 template <int MODE>
 __global__ void __launch_bounds__(SCAN_THREADS)
 field_scan_kernel(ScanArgs s, FieldConst fc) {
     extern __shared__ uint32_t sm[];
     __shared__ int tile_id;
+    __shared__ bool last;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (tid == 0) tile_id = atomicAdd(s.counter, 1);
-    __syncthreads();
-    const int id = tile_id;
+    const int nthreads = blockDim.x, nwarps = nthreads >> 5, items = s.items, slots = s.slots;
+    const int tile = nthreads * items;
+    const int slot_wtot = tile, slot_wex = tile + SCAN_WARPS, slot_excl = tile + 2 * SCAN_WARPS;
+    const bool chained = s.tiles > 1;
+    if (chained) {
+        if (tid == 0) tile_id = atomicAdd(s.state, 1);
+        __syncthreads();
+    }
+    const int id = chained ? tile_id : (int)blockIdx.x;
     const int row = id / s.tiles, t = id % s.tiles;
-    const long first = (long)t * SCAN_TILE;
+    const long first = (long)t * tile;
     const Sv<MODE> ident = sv_identity<MODE>(fc);
 
     // load the tile (positions past n hold the identity)
-    for (int e = tid; e < SCAN_TILE; e += SCAN_THREADS) {
+    for (int e = tid; e < tile; e += nthreads) {
         const long pos = first + e;
         Sv<MODE> x = ident;
         if (pos < s.n) {
@@ -232,143 +311,142 @@ field_scan_kernel(ScanArgs s, FieldConst fc) {
             x.m = fe_load(s.a + row * s.a_rs + i * s.a_ns, s.a_ls);
             if (MODE == SCAN_AFFINE) x.b = fe_load(s.b + row * s.b_rs + i * s.b_ns, s.b_ls);
         }
-        sv_put<MODE>(sm, e, x);
+        sv_put<MODE>(sm, slots, e, x);
     }
     __syncthreads();
 
     // each thread's run, inclusive, in place
-    const int e0 = tid * SCAN_ITEMS;
-    Sv<MODE> run = sv_get<MODE>(sm, e0);
+    const int e0 = tid * items;
+    Sv<MODE> run = sv_get<MODE>(sm, slots, e0);
 #pragma unroll 1
-    for (int j = 1; j < SCAN_ITEMS; ++j) {
-        run = sv_combine<MODE>(run, sv_get<MODE>(sm, e0 + j), fc);
-        sv_put<MODE>(sm, e0 + j, run);
+    for (int j = 1; j < items; ++j) {
+        run = sv_combine<MODE>(run, sv_get<MODE>(sm, slots, e0 + j), fc);
+        sv_put<MODE>(sm, slots, e0 + j, run);
     }
-    // the warp's inclusive scan of the thread totals
+    // the warp's inclusive scan of the thread totals; a one-warp CTA stops
+    // at the last lane that holds an element (its total is not needed)
+    const long live = (s.n - first + items - 1) / items;
+    const int levels_to = nwarps == 1 && live < 32 ? (int)live : 32;
 #pragma unroll 1
-    for (int d = 1; d < 32; d <<= 1) {
-        const Sv<MODE> o = sv_shfl_up<MODE>(run, d);
+    for (int d = 1; d < levels_to; d <<= 1) {
+        const Sv<MODE> o = sv_shfl<MODE, true>(run, d);
         if (lane >= d) run = sv_combine<MODE>(o, run, fc);
     }
-    Sv<MODE> lane_ex = sv_shfl_up<MODE>(run, 1);
+    Sv<MODE> lane_ex = sv_shfl<MODE, true>(run, 1);
     if (lane == 0) lane_ex = ident;
-    if (lane == 31) sv_put<MODE>(sm, SLOT_WTOT + warp, run);
+    if (lane == 31) sv_put<MODE>(sm, slots, slot_wtot + warp, run);
     __syncthreads();
 
-    uint32_t* my_agg = s.agg + (long)id * 2 * FE_LIMBS;
-    uint32_t* my_inc = s.inc + (long)id * 2 * FE_LIMBS;
-    volatile int* flags = s.flags;
-    if (tid == 0) {
-        Sv<MODE> acc = ident;
-#pragma unroll 1
-        for (int w = 0; w < SCAN_WARPS; ++w) {
-            sv_put<MODE>(sm, SLOT_WEX + w, acc);
-            acc = w == 0 ? sv_get<MODE>(sm, SLOT_WTOT) : sv_combine<MODE>(acc, sv_get<MODE>(sm, SLOT_WTOT + w), fc);
-        }
-        sv_put<MODE>(sm, SLOT_AGG, acc);
-        sv_publish<MODE>(t == 0 ? my_inc : my_agg, acc);
-        __threadfence();
-        flags[id] = t == 0 ? FLAG_INC : FLAG_AGG;
-    }
-    __syncthreads();
-
-    // warp 0: decoupled look-back for what precedes the tile
+    // warp 0: the warp totals' exclusive scan, the tile's total, and for a
+    // chained tile its publication and look-back
     if (warp == 0) {
+        Sv<MODE> wt = lane < nwarps ? sv_get<MODE>(sm, slots, slot_wtot + lane) : ident;
+#pragma unroll 1
+        for (int d = 1; d < nwarps; d <<= 1) {
+            const Sv<MODE> o = sv_shfl<MODE, true>(wt, d);
+            if (lane >= d) wt = sv_combine<MODE>(o, wt, fc);
+        }
+        Sv<MODE> wex = sv_shfl<MODE, true>(wt, 1);
+        if (lane == 0) wex = ident;
+        if (lane < nwarps) sv_put<MODE>(sm, slots, slot_wex + lane, wex);
         Sv<MODE> excl = ident;
-        if (t > 0) {
-            const int row0 = id - t;  // the row's first tile
-            int look = t - 1;         // the tile lane 0 inspects
-#pragma unroll 1
-            while (true) {
-                const int k = look - lane;
-                int f = FLAG_INC;     // lanes before the row's first tile: the identity
-                if (k >= 0) {
-                    // the tile's CTA is running and publishes within microseconds;
-                    // a flag still unset after ~2^22 polls is a fault: abort the
-                    // launch rather than hang the card
-                    int polls = 0;
-                    do {
-                        f = flags[row0 + k];
-                        if (++polls == (1 << 22)) __trap();
-                    } while (f == FLAG_NONE);
-                }
+        if (chained) {
+            const Sv<MODE> agg = sv_shfl_idx<MODE>(wt, nwarps - 1);
+            uint32_t* my_agg = s.agg + (long)id * 2 * FE_LIMBS;
+            uint32_t* my_inc = s.inc + (long)id * 2 * FE_LIMBS;
+            volatile int* flags = s.state + 2;
+            if (lane == 0) {
+                sv_publish<MODE>(t == 0 ? my_inc : my_agg, agg);
                 __threadfence();
-                Sv<MODE> v = ident;
-                if (k >= 0) v = sv_read<MODE>((f == FLAG_INC ? s.inc : s.agg) + (long)(row0 + k) * 2 * FE_LIMBS);
-                const unsigned incs = __ballot_sync(0xffffffffu, f == FLAG_INC);
-                const int stop = incs ? __ffs(incs) - 1 : 31;  // lanes 0..stop count
-                if (lane > stop) v = ident;
-                // lane L holds a later tile than lane L + 1: fold lanes [L, L + 2d)
-#pragma unroll 1
-                for (int d = 1; d < 32; d <<= 1) {
-                    const Sv<MODE> o = sv_shfl_down<MODE>(v, d);
-                    if (lane + d < 32) v = sv_combine<MODE>(o, v, fc);
-                }
-                excl = sv_combine<MODE>(v, excl, fc);  // lane 0's is the one kept
-                if (incs) break;
-                look -= 32;
+                flags[id] = t == 0 ? FLAG_INC : FLAG_AGG;
             }
-        }
-        if (lane == 0) {
-            sv_put<MODE>(sm, SLOT_EXCL, excl);
             if (t > 0) {
-                sv_publish<MODE>(my_inc, sv_combine<MODE>(excl, sv_get<MODE>(sm, SLOT_AGG), fc));
-                __threadfence();
-                flags[id] = FLAG_INC;
+                excl = scan_look_back<MODE>(s, id - t, t, ident, fc);
+                if (lane == 0) {
+                    sv_publish<MODE>(my_inc, sv_combine<MODE>(excl, agg, fc));
+                    __threadfence();
+                    flags[id] = FLAG_INC;
+                }
             }
         }
+        if (lane == 0) sv_put<MODE>(sm, slots, slot_excl, excl);
     }
     __syncthreads();
 
     // every element takes what precedes its thread's run
     const Sv<MODE> pre = sv_combine<MODE>(
-        sv_combine<MODE>(sv_get<MODE>(sm, SLOT_EXCL), sv_get<MODE>(sm, SLOT_WEX + warp), fc), lane_ex, fc);
+        sv_combine<MODE>(sv_get<MODE>(sm, slots, slot_excl), sv_get<MODE>(sm, slots, slot_wex + warp), fc),
+        lane_ex, fc);
 #pragma unroll 1
-    for (int j = 0; j < SCAN_ITEMS; ++j) sv_put<MODE>(sm, e0 + j, sv_combine<MODE>(pre, sv_get<MODE>(sm, e0 + j), fc));
+    for (int j = 0; j < items; ++j)
+        sv_put<MODE>(sm, slots, e0 + j, sv_combine<MODE>(pre, sv_get<MODE>(sm, slots, e0 + j), fc));
     __syncthreads();
 
     // store the tile (coalesced): the product, or the recurrence's d
     const long ls = (long)s.rows * s.n;
-    for (int e = tid; e < SCAN_TILE; e += SCAN_THREADS) {
+    for (int e = tid; e < tile; e += nthreads) {
         const long pos = first + e;
         if (pos >= s.n) break;
         const long i = s.reverse ? s.n - 1 - pos : pos;
-        const Sv<MODE> v = sv_get<MODE>(sm, e);
+        const Sv<MODE> v = sv_get<MODE>(sm, slots, e);
         fe_store(s.out + row * s.n + i, ls, MODE == SCAN_AFFINE ? v.b : v.m);
+    }
+
+    // the last CTA to finish leaves the state zero for the next launch: every
+    // other CTA has taken its tile and ended its look-back
+    if (chained) {
+        const int total = s.rows * s.tiles;
+        if (tid == 0) {
+            __threadfence();
+            last = atomicAdd(s.state + 1, 1) == total - 1;
+        }
+        __syncthreads();
+        if (last) {
+            __threadfence();
+            for (int i = tid; i < total; i += nthreads) s.state[2 + i] = FLAG_NONE;
+            if (tid == 0) {
+                s.state[0] = 0;
+                s.state[1] = 0;
+            }
+        }
     }
 }
 
 template <int MODE>
-static int launch_scan(const ScanArgs& args, const FieldConst& fc, cudaStream_t stream) {
-    const size_t smem = sizeof(uint32_t) * (MODE == SCAN_AFFINE ? 2 : 1) * FE_LIMBS * SCAN_SLOTS;
+static int launch_scan(const ScanArgs& args, int threads, const FieldConst& fc, cudaStream_t stream) {
+    const size_t smem = sizeof(uint32_t) * (MODE == SCAN_AFFINE ? 2 : 1) * FE_LIMBS * args.slots;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(field_scan_kernel<MODE>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    field_scan_kernel<MODE><<<(unsigned)((long)args.rows * args.tiles), SCAN_THREADS, smem, stream>>>(args, fc);
+    field_scan_kernel<MODE><<<(unsigned)((long)args.rows * args.tiles), threads, smem, stream>>>(args, fc);
     return (int)cudaGetLastError();
 }
 
 // mode: 0 the product of a (reverse: 1 for the suffix product; b unused),
 // 1 the affine recurrence with m = a. Element i of row r of an operand is
 // at base + r * rs + i * ns, limb stride ls; out is (18, rows, n)
-// contiguous; state: state_words int32 words of scratch, at least the tile
-// counter and flags, then each tile's total and inclusive prefix (18 words
-// each) - 1 + 37 words per tile of SCAN_TILE elements (the flags are zeroed
-// here).
+// contiguous. The plan (scan_plan in kernels/field_kernels.py): threads
+// (32, or SCAN_THREADS), items per thread (1, 2, 4 or 8) and tiles per row,
+// ceil(n / (threads x items)). With tiles > 1: state, state_words int32
+// words, zero, that the launch leaves zero - 2 counters and a flag per tile,
+// 2 + rows x tiles words; data, data_words words of any content - each
+// tile's total and inclusive prefix, 18 words each, 36 per tile (both
+// unused, and may be null, when tiles == 1).
 extern "C" int bb_field_scan(int mode, int reverse, const void* a, long a_ls, long a_rs, long a_ns,
                              const void* b, long b_ls, long b_rs, long b_ns, void* out, int rows, long n,
-                             void* state, long state_words, const uint32_t* consts, void* stream) {
+                             int threads, int items, long tiles, void* state, long state_words, void* data,
+                             long data_words, const uint32_t* consts, void* stream) {
     if (rows <= 0 || n <= 0) return 0;
     if (mode == SCAN_AFFINE && reverse) return (int)cudaErrorInvalidValue;
-    const long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
-    if ((long)rows * tiles > 0x7fffffffL || state_words < 1 + (long)rows * tiles * (1 + 4 * FE_LIMBS))
+    if ((threads != 32 && threads != SCAN_THREADS) || items < 1 || items > SCAN_MAX_ITEMS || (items & (items - 1)))
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    int* words = (int*)state;
-    cudaError_t e = cudaMemsetAsync(words, 0, sizeof(int) * (1 + rows * tiles), st);
-    if (e != cudaSuccess) return (int)e;
+    const long tile = (long)threads * items;
+    if (tiles != (n + tile - 1) / tile || (long)rows * tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+    if (tiles > 1 && (threads != SCAN_THREADS || state == nullptr || data == nullptr ||
+                      state_words < 2 + (long)rows * tiles || data_words < (long)rows * tiles * 4 * FE_LIMBS))
+        return (int)cudaErrorInvalidValue;
     ScanArgs args;
     args.a = (const uint32_t*)a;
     args.a_ls = a_ls;
@@ -381,16 +459,18 @@ extern "C" int bb_field_scan(int mode, int reverse, const void* a, long a_ls, lo
     args.out = (uint32_t*)out;
     args.rows = rows;
     args.n = n;
+    args.items = items;
     args.tiles = (int)tiles;
+    args.slots = SCAN_PAD((int)tile + SCAN_EXTRA);
     args.reverse = reverse;
-    args.counter = words;
-    args.flags = words + 1;
-    args.agg = (uint32_t*)(words + 1 + rows * tiles);
-    args.inc = args.agg + rows * tiles * 2 * FE_LIMBS;
+    args.state = (int*)state;
+    args.agg = (uint32_t*)data;
+    args.inc = tiles > 1 ? args.agg + (long)rows * tiles * 2 * FE_LIMBS : nullptr;
     const FieldConst fc = field_const_from_host(consts);
+    cudaStream_t st = (cudaStream_t)stream;
     switch (mode) {
-        case SCAN_PROD: return launch_scan<SCAN_PROD>(args, fc, st);
-        case SCAN_AFFINE: return launch_scan<SCAN_AFFINE>(args, fc, st);
+        case SCAN_PROD: return launch_scan<SCAN_PROD>(args, threads, fc, st);
+        case SCAN_AFFINE: return launch_scan<SCAN_AFFINE>(args, threads, fc, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

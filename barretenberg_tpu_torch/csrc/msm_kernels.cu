@@ -55,10 +55,24 @@
 //
 // K3c window_combine: the Horner combine of the rounds' window sums,
 // most significant first - c doublings of the running sum, then one add of
-// the next window - one thread per MSM, the MSMs of a commit call in one
-// launch. Each chain is serial, and any other grouping of the sums would
-// change the Jacobian coordinates; the chains run side by side in one warp,
-// so a launch takes one chain's time.
+// the next window - for the MSMs of a commit call in one launch. Each chain
+// is serial, and any other grouping of the sums would change the Jacobian
+// coordinates, so what bounds a launch is one chain's dependent latency:
+// 11 rounds of 13 doublings and one add at c = 13. A Montgomery product
+// costs one warp ~1,000 cycles of issue (fe_mul's ~340 multiply-adds), so
+// the chain's length in products sets the time. The design spreads each
+// point operation's independent products over a group of COMBINE_GROUP
+// lanes of one warp: the lanes run the same fe_mul on different operands
+// side by side (SIMT), so a level of up to five products costs one
+// product's time, and every lane of the group then takes all of the
+// level's products by shuffles and computes the sums between levels
+// itself. dbl-2009-l is three levels ({X^2, Y^2, YZ}, {B^2, X B, E^2},
+// E(D - X3), with D = 2((X + B)^2 - A - C) = 4 X B); add-2007-bl is four,
+// its products regrouped to the same field values (S1 = (Y1 Z2) Z2Z2,
+// X3 = r^2 - I (H + 2 U1), Y3 = I (r (3 U1 + H) - 2 S1 H) - r^3): a round is 13 x 3 + 4 = 43 product latencies in
+// place of 13 x 7 + 16 = 107. Field products and sums are exact and
+// canonical, so the coordinates equal the one-thread formulas' limb for
+// limb.
 //
 // K4 glv_digits: one thread per scalar leaves Montgomery form, splits k =
 // k1 - k2 lambda (mod r) with the Babai quotients as the high limbs of limb
@@ -84,7 +98,8 @@ namespace cg = cooperative_groups;
 #define REDUCE_THREADS 256
 #define WIDE_CLUSTER 8  // K3b-wide: CTAs per cluster (the portable cluster size)
 #define DIGIT_THREADS 128
-#define COMBINE_THREADS 32  // K3c: chains per CTA
+#define COMBINE_GROUP 8     // K3c: lanes per chain (a level has at most five products)
+#define COMBINE_THREADS 32  // K3c: one warp a CTA, COMBINE_THREADS / COMBINE_GROUP chains
 
 __device__ __forceinline__ int bucket_of(int d, int nbuckets) {
     int mag = d < 0 ? -d : d;
@@ -489,36 +504,122 @@ bucket_reduce_wide_kernel(const int* __restrict__ cd, Pts in0, Pts mid, Pts bk0,
 // ---------------------------------------------------------------------------
 // K3c
 // ---------------------------------------------------------------------------
+// Lane `src` of this lane's group's value of v.
+__device__ __forceinline__ fe fe_group_from(const fe& v, int src) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < FE_LIMBS; ++k) r.v[k] = __shfl_sync(0xffffffffu, v.v[k], src, COMBINE_GROUP);
+    return r;
+}
+
+// The operand of this lane's role: v[role] for role < N, else v[0] (a
+// spare lane computes a product no one reads).
+template <int N>
+__device__ __forceinline__ fe fe_role(int role, const fe (&v)[N]) {
+    fe r = v[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i) r = fe_select(role == i, v[i], r);
+    return r;
+}
+
+// jac_dbl's (x, y, z) in place, by the whole group: every lane of the
+// group holds the same point and ends with the same result.
+__device__ __forceinline__ void coop_dbl(fe& x, fe& y, fe& z, int role, const FieldConst& fc) {
+    // level 1: A = X^2, B = Y^2, YZ
+    fe p = fe_mul(fe_role<3>(role, {x, y, y}), fe_role<3>(role, {x, y, z}), fc);
+    const fe a = fe_group_from(p, 0), b = fe_group_from(p, 1), yz = fe_group_from(p, 2);
+    const fe e = fe_add(fe_dbl(a, fc), a, fc);
+    // level 2: C = B^2, X B, F = E^2 (D = 2((X + B)^2 - A - C) = 4 X B)
+    p = fe_mul(fe_role<3>(role, {b, x, e}), fe_role<3>(role, {b, b, e}), fc);
+    const fe c = fe_group_from(p, 0), xb = fe_group_from(p, 1), f = fe_group_from(p, 2);
+    const fe d = fe_dbl(fe_dbl(xb, fc), fc);
+    const fe x3 = fe_sub(f, fe_dbl(d, fc), fc);
+    // level 3: E (D - X3), the same product on every lane
+    y = fe_sub(fe_mul(e, fe_sub(d, x3, fc), fc), fe_dbl(fe_dbl(fe_dbl(c, fc), fc), fc), fc);
+    x = x3;
+    z = fe_dbl(yz, fc);
+}
+
+// jac_add<false>(P1, P2) by the whole group, with its selects for P1 ==
+// P2, P1 == -P2 and either operand at infinity.
+__device__ __forceinline__ jpt coop_add(const jpt& p1, const jpt& p2, int role, const FieldConst& fc) {
+    const fe &x1 = p1.x, &y1 = p1.y, &z1 = p1.z, &x2 = p2.x, &y2 = p2.y, &z2 = p2.z;
+    // level 1: Z1Z1 = Z1^2, Z2Z2 = Z2^2, (Z1 + Z2)^2, Y1 Z2, Y2 Z1
+    const fe zs = fe_add(z1, z2, fc);
+    fe p = fe_mul(fe_role<5>(role, {z1, z2, zs, y1, y2}), fe_role<5>(role, {z1, z2, zs, z2, z1}), fc);
+    const fe z1z1 = fe_group_from(p, 0), z2z2 = fe_group_from(p, 1), zz = fe_group_from(p, 2);
+    const fe t1 = fe_group_from(p, 3), t2 = fe_group_from(p, 4);
+    // level 2: U1 = X1 Z2Z2, U2 = X2 Z1Z1, S1 = (Y1 Z2) Z2Z2, S2 = (Y2 Z1) Z1Z1
+    p = fe_mul(fe_role<4>(role, {x1, x2, t1, t2}), fe_role<4>(role, {z2z2, z1z1, z2z2, z1z1}), fc);
+    const fe u1 = fe_group_from(p, 0), u2 = fe_group_from(p, 1), s1 = fe_group_from(p, 2), s2 = fe_group_from(p, 3);
+    const fe h = fe_sub(u2, u1, fc);
+    const fe r = fe_dbl(fe_sub(s2, s1, fc), fc);
+    const bool h_zero = fe_is_zero(h), r_zero = fe_is_zero(r);
+    const fe h2 = fe_dbl(h, fc);
+    const fe w = fe_sub(zz, fe_add(z1z1, z2z2, fc), fc);
+    const fe k1 = fe_add(fe_add(fe_dbl(u1, fc), u1, fc), h, fc);
+    // level 3: I = (2H)^2, r^2, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H, r (3 U1 + H), S1 H
+    p = fe_mul(fe_role<5>(role, {h2, r, w, r, s1}), fe_role<5>(role, {h2, r, h, k1, h}), fc);
+    const fe i = fe_group_from(p, 0), r2 = fe_group_from(p, 1), z3 = fe_group_from(p, 2);
+    const fe rk = fe_group_from(p, 3), sh = fe_group_from(p, 4);
+    // level 4: I (H + 2 U1) = J + 2V, r^3, I (r (3 U1 + H) - 2 S1 H)
+    p = fe_mul(fe_role<3>(role, {i, r, i}),
+               fe_role<3>(role, {fe_add(h, fe_dbl(u1, fc), fc), r2, fe_sub(rk, fe_dbl(sh, fc), fc)}), fc);
+    fe x3 = fe_sub(r2, fe_group_from(p, 0), fc);
+    fe y3 = fe_sub(fe_group_from(p, 2), fe_group_from(p, 1), fc);
+    fe zo = z3;
+
+    const bool both = !p1.inf && !p2.inf;
+    const bool use_dbl = both && h_zero && r_zero;
+    const bool cancel = both && h_zero && !r_zero;
+    if (__any_sync(0xffffffffu, use_dbl)) {  // rare: P1 == P2 in some chain of the warp
+        fe dx = x1, dy = y1, dz = z1;
+        coop_dbl(dx, dy, dz, role, fc);
+        x3 = fe_select(use_dbl, dx, x3);
+        y3 = fe_select(use_dbl, dy, y3);
+        zo = fe_select(use_dbl, dz, zo);
+    }
+    jpt out;
+    out.x = fe_select(p2.inf, x1, fe_select(p1.inf, x2, x3));
+    out.y = fe_select(p2.inf, y1, fe_select(p1.inf, y2, y3));
+    out.z = fe_select(p2.inf, z1, fe_select(p1.inf, z2, zo));
+    out.inf = p2.inf ? p1.inf : (p1.inf ? p2.inf : cancel);
+    return out;
+}
+
 // win: (18, sets * rounds) window sums, lane s * rounds + r = MSM s's round
 // r, as K3b-wide writes them for sets * rounds bucket sets. out: (18, sets),
 // one point per MSM, which also holds its running sum between rounds: a
 // round loads it, doubles it c times in registers, adds its window and
-// stores it back. (With the sum carried in registers across rounds, cicc of
-// CUDA 12.9 crashes on this kernel.) The sum starts at infinity with zero
-// coordinates; a doubling leaves the infinity flag as it is and doubles the
-// coordinates, as the lane-wise point_dbl kernel does.
+// stores it back (lane 0 of the group; the group's lanes hold the same
+// point). (With the sum carried in registers across rounds, cicc of CUDA
+// 12.9 crashes on the one-thread kernel.) The sum starts at infinity with
+// zero coordinates; a doubling leaves the infinity flag as it is and
+// doubles the coordinates, as the lane-wise point_dbl kernel does. Groups
+// past the last MSM shadow it and store nothing, so that every lane of the
+// warp takes part in the shuffles.
 __global__ void __launch_bounds__(COMBINE_THREADS)
 window_combine_kernel(Pts win, int sets, int rounds, int c, Pts out, FieldConst fc) {
-    const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= sets) return;
+    const int role = threadIdx.x % COMBINE_GROUP;
+    const int s0 = blockIdx.x * (COMBINE_THREADS / COMBINE_GROUP) + threadIdx.x / COMBINE_GROUP;
+    const bool owner = s0 < sets && role == 0;
+    const int s = s0 < sets ? s0 : sets - 1;
     const long wstride = (long)sets * rounds, wbase = (long)s * rounds;
     jpt acc;
     acc.x = acc.y = acc.z = fe_zero();
     acc.inf = true;
-    store_pt(out, s, sets, acc);
+    if (owner) store_pt(out, s, sets, acc);
+    __syncwarp();
 #pragma unroll 1
     for (int r = rounds - 1; r >= 0; --r) {
         jpt p = load_pt_cg(out, s, sets);
 #pragma unroll 1
-        for (int k = 0; k < c; ++k) {
-            jac d = jac_dbl(p.x, p.y, p.z, fc);
-            p.x = d.x;
-            p.y = d.y;
-            p.z = d.z;
-        }
-        jpt w = load_pt_cg(win, wbase + r, wstride);
-        p = jac_add<false>(p.x, p.y, p.z, p.inf, w.x, w.y, w.z, w.inf, fc);
-        store_pt(out, s, sets, p);
+        for (int k = 0; k < c; ++k) coop_dbl(p.x, p.y, p.z, role, fc);
+        const jpt w = load_pt_cg(win, wbase + r, wstride);
+        p = coop_add(p, w, role, fc);
+        __syncwarp();  // every lane has read the sum before it is replaced
+        if (owner) store_pt(out, s, sets, p);
+        __syncwarp();
     }
 }
 
@@ -769,7 +870,8 @@ extern "C" int bb_window_combine(const void* wx, const void* wy, const void* wz,
     if (sets <= 0 || rounds <= 0 || c < 0) return (int)cudaErrorInvalidValue;
     Pts win = {(uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, (uint8_t*)winf};
     Pts out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)oinf};
-    const unsigned grid = (unsigned)((sets + COMBINE_THREADS - 1) / COMBINE_THREADS);
+    const int chains = COMBINE_THREADS / COMBINE_GROUP;
+    const unsigned grid = (unsigned)((sets + chains - 1) / chains);
     window_combine_kernel<<<grid, COMBINE_THREADS, 0, (cudaStream_t)stream>>>(win, sets, rounds, c, out,
                                                                              field_const_from_host(consts));
     return (int)cudaGetLastError();

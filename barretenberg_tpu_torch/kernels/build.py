@@ -114,7 +114,7 @@ _SIGNATURES = {
     "field_kernels": {
         "bb_field_op": [_I, _VP, _L, _L, _VP, _L, _L, _VP, _L, _VP, _VP],
         "bb_field_pow": [_VP, _L, _L, _VP, _L, _VP, _I, _VP, _VP],
-        "bb_field_scan": [_I, _I, _VP, _L, _L, _L, _VP, _L, _L, _L, _VP, _I, _L, _VP, _L, _VP, _VP],
+        "bb_field_scan": [_I, _I, _VP, _L, _L, _L, _VP, _L, _L, _L, _VP, _I, _L, _I, _I, _L, _VP, _L, _VP, _L, _VP, _VP],
         "bb_field_dot": [_I, _VP, _VP, _L, _L, _VP, _L, _L, _L, _I, _VP, _L, _VP, _VP],
         "bb_field_dot_ctas": [_VP],
         "bb_field_lincomb": [_I, _VP, ctypes.c_char_p, _VP, _L, _VP, _VP],

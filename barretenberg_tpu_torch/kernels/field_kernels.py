@@ -35,18 +35,26 @@ prefix or suffix product, or the affine recurrence d_i = m_i d_{i-1} + b_i,
 along each row of an ``(18, rows, n)`` array. The port ran those loops
 eagerly, each of their log2(n) levels a ``roll``, a mask, a ``where`` and
 one or three K1 launches: 16-18 levels of host launch path per scan at the
-prove's sizes, n log2 n products. What bounds the kernel on the card:
-bytes and operations about equally - 72 bytes in and out per element and
-about 2n products (3n for the recurrence), ~3 us each at 2^16. What the
-design does about it: one launch runs the whole scan with about 2n
-products (``csrc/field_kernels.cu``): each CTA loads a tile of 1,024
-elements into shared memory, each thread scans 8 consecutive ones in
-registers, the thread totals are scanned across the warp by shuffles and
-across the CTA by one thread, and the tiles chain by decoupled look-back
-(each tile publishes its total at once and its inclusive prefix when it
-has it; warp 0 folds up to 32 earlier tiles per step). Field products and
-sums are exact and canonical, so any grouping gives the plain version's
-limbs bit for bit, ``batch_invert``'s values at zero entries included.
+prove's sizes, n log2 n products. What bounds the kernel on the card: the
+dependent chain of combines in one tile (a combine is one or two products,
+~1,000 cycles of one warp's issue each), not the bytes (72 per element in
+and out) or the ~2n products, which at 2^16 are ~8 products per warp
+scheduler. What the design does about it (``csrc/field_kernels.cu``): one
+launch runs the whole scan, with a tile picked from the row by
+``scan_plan`` - a row of up to 32 elements is one warp, one of up to 1,024
+one CTA (both with no look-back and no flags), a longer row tiles of 128
+threads of 4 items while all its tiles fit on the card's SMs at once (2^16:
+128 tiles), else of 8 - so that a 2^16 row runs on the whole card with a
+short chain: each thread scans its items in registers, warps by shuffles,
+warp 0 the warp totals by shuffles, and tiles chain by a decoupled
+look-back whose lanes each fold up to 4 earlier tiles (a window of 128).
+The look-back's counters and flags live in a scratch buffer cached per
+(card, stream) that each launch leaves zeroed for the next (its tiles'
+totals and prefixes in another), so a scan is one device operation and
+allocates nothing but its output. Field products
+and sums are exact and canonical, so any grouping gives the plain
+version's limbs bit for bit, ``batch_invert``'s values at zero entries
+included.
 
 ``dot`` replaces the ``mont_mul`` and the ``add`` levels of ``_mul_fn`` in
 the JAX package's evaluations (``plonk/prover.py:259-271``
@@ -94,8 +102,9 @@ from .limb_ops import LimbField
 L = NUM_LIMBS
 _OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3}
 EXP_WORDS = 8  # csrc/field_kernels.cu: pow takes exponents of up to 256 bits
-SCAN_TILE = 1024  # csrc/field_kernels.cu SCAN_TILE: elements per CTA of scan
-SCAN_WORDS_PER_TILE = 1 + 4 * 9  # a tile's flag, total and inclusive prefix
+SCAN_THREADS = 128  # csrc/field_kernels.cu: threads of a tiled scan CTA
+SCAN_MAX_ITEMS = 8  # csrc/field_kernels.cu: elements per scan thread, at most
+SCAN_DATA_WORDS_PER_TILE = 4 * 9  # a tile's total and inclusive prefix
 _SCAN_MODES = {"prod": 0, "affine": 1}
 DOT_THREADS = 128  # csrc/field_kernels.cu: threads per CTA of dot
 DOT_MAX_ROWS = 8  # csrc/field_kernels.cu: rows per launch of dot
@@ -252,6 +261,48 @@ def _scan_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.unsqueeze(1) if t.ndim == 2 else t if t.ndim == 3 else t.reshape(L, -1, t.shape[-1])
 
 
+def scan_plan(rows: int, n: int, sms: int, threads: int = SCAN_THREADS, warp: int = 32,
+              max_items: int = SCAN_MAX_ITEMS) -> tuple:
+    """K1 scan's (threads, items, tiles) for `rows` rows of n elements on a
+    card of `sms` SMs: a row of at most one warp's elements is one warp of
+    one element a lane, one of at most `threads` x `max_items` one CTA of
+    the fewest items that cover it (neither with a look-back); a longer row
+    takes tiles of `threads` x max_items / 2 while all tiles of all rows fit
+    on the SMs at once, else of `threads` x max_items."""
+    if n <= warp:
+        return warp, 1, 1
+    if n <= threads * max_items:
+        items = 1
+        while threads * items < n:
+            items *= 2
+        return threads, items, 1
+    items = max_items // 2
+    if rows * -(-n // (threads * items)) > sms:
+        items = max_items
+    return threads, items, -(-n // (threads * items))
+
+
+def scan_scratch_words(rows: int, tiles: int) -> tuple:
+    """The int32 words of a chained scan's two scratch buffers: its state
+    (two counters and a flag per tile, zero before and after each launch)
+    and its data (each tile's total and inclusive prefix). They are apart,
+    so that no flag of a later launch with more tiles lands on data an
+    earlier one left."""
+    return 2 + rows * tiles, rows * tiles * SCAN_DATA_WORDS_PER_TILE
+
+
+_sms: dict = {}
+_scan_state: dict = {}
+_scan_data: dict = {}
+
+
+def _multiprocessors(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def _launch_scan(params: FieldParams, mode: str, a, b, dim: int, reverse: bool):
     moved = a.movedim(dim, -1).shape
     a3 = _scan_rows(a, dim)
@@ -260,14 +311,22 @@ def _launch_scan(params: FieldParams, mode: str, a, b, dim: int, reverse: bool):
         raise ValueError("scan kernel operands differ in device or shape")
     _, rows, n = a3.shape
     out = a3.new_empty((L, rows, n))
-    words = 1 + rows * -(-n // SCAN_TILE) * SCAN_WORDS_PER_TILE
-    state = a3.new_empty(words)
+    device = a3.device
+    threads, items, tiles = scan_plan(rows, n, _multiprocessors(device))
     with build.on_device(a3):
+        stream = build.stream_of(a3)
+        state = data = None
+        state_words = data_words = 0
+        if tiles > 1:
+            state_words, data_words = scan_scratch_words(rows, tiles)
+            state = _scratch(_scan_state, device, stream, state_words).data_ptr()
+            data = _scratch(_scan_data, device, stream, data_words).data_ptr()
         err = build.get_lib("field_kernels").bb_field_scan(
             _SCAN_MODES[mode], int(reverse),
             a3.data_ptr(), a3.stride(0), a3.stride(1), a3.stride(2),
             b3.data_ptr(), b3.stride(0), b3.stride(1), b3.stride(2),
-            out.data_ptr(), rows, n, state.data_ptr(), words, build.field_consts(params), build.stream_of(a3),
+            out.data_ptr(), rows, n, threads, items, tiles, state, state_words, data, data_words,
+            build.field_consts(params), stream,
         )
     build.check(err, f"field_scan[{mode}]")
     _count("scan", n)
@@ -307,14 +366,15 @@ def dot_grid(capacity: int, rows: int, n: int) -> int:
     return max(1, min(capacity // rows, -(-n // DOT_THREADS)))
 
 
-def _scratch(device, stream: int, words: int) -> torch.Tensor:
-    """dot's zeroed scratch for one stream, at least `words` int32 words (its
-    tickets are back at zero when each launch ends, so launches in the
-    stream's order share it)."""
+def _scratch(cache: dict, device, stream: int, words: int) -> torch.Tensor:
+    """A kernel's zeroed scratch for one stream in `cache`, at least `words`
+    int32 words, grown and never shrunk: dot's tickets and scan's counters
+    and flags are back at zero when each launch ends, so launches in the
+    stream's order share it."""
     key = (device, stream)
-    s = _dot_scratch.get(key)
+    s = cache.get(key)
     if s is None or s.numel() < words:
-        s = _dot_scratch[key] = torch.zeros(words, dtype=torch.int32, device=device)
+        s = cache[key] = torch.zeros(words, dtype=torch.int32, device=device)
     return s
 
 
@@ -333,7 +393,7 @@ def _launch_dot(params: FieldParams, rows, table):
             part = rows[start : start + DOT_MAX_ROWS]
             b = len(part)
             ctas = dot_grid(dot_ctas(device), b, n)
-            scratch = _scratch(device, stream, DOT_MAX_ROWS + ctas * b * 9)
+            scratch = _scratch(_dot_scratch, device, stream, DOT_MAX_ROWS + ctas * b * 9)
             args = np.array([v for r in part for v in (r.data_ptr(), r.stride(0), r.stride(1))], dtype=np.int64)
             err = lib.bb_field_dot(
                 b, args.ctypes.data, table.data_ptr(), table.stride(0), table.stride(1),

@@ -4,7 +4,7 @@ Pippenger's MSM for every round at once, one launch each per MSM; K3b-wide
 bucket sets too large for one CTA (the precomputed-table MSM's, all rounds
 in one set) and for the rounds-batched MSM's rounds, one set each, in place
 of K3b; K3c ``window_combine``: the Horner combine of the rounds' window
-sums, one thread per MSM, the MSMs of a commit call in one launch.
+sums, a group of 8 lanes per MSM, the MSMs of a commit call in one launch.
 
 Replace the two scans of the JAX package's per-round Pippenger whose bodies
 are its Pallas point kernel (``kernels/point_kernels.py:179``
@@ -93,12 +93,17 @@ one launch.
 
 K3c is bound by neither bytes nor instruction rate: its 143 doublings and 11 adds
 (c = 13, 11 rounds) are one dependent chain of ~1,200 Montgomery products,
-and grouping the sums any other way would change the Jacobian coordinates.
-What the design does about it: one thread runs a whole chain - each
-round's doublings and add in registers, the running sum stored and reloaded
-once per round - and the B MSMs of a commit call are B threads of one
-launch, where the JAX package runs c + 1 point-kernel calls per round and
-MSM; the launch's device time stays that of one chain.
+and grouping the sums any other way would change the Jacobian coordinates;
+a product costs one warp ~1,000 cycles of issue. What the design does
+about it: a group of 8 lanes of one warp runs a chain, each point
+operation's independent products side by side on the group's lanes (the
+same fe_mul on other operands costs a warp no more issue), in 3 levels a
+doubling and 4 an add (43 product latencies a round in place of 107),
+each lane taking the level's products by shuffles and computing the sums
+between levels itself; the running sum is stored and reloaded once per
+round, and the B MSMs of a commit call are B groups of one launch, where
+the JAX package runs c + 1 point-kernel calls per round and MSM; the
+launch's device time stays that of one chain.
 
 Every point operation is the plain version's, on the same lanes in the same
 order, so the Jacobian coordinates are equal limb for limb (and to the JAX

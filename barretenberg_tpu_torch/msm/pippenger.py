@@ -26,8 +26,8 @@ lanes and no scatter-accumulate:
        sum_m (m+1) S_m with two suffix scans (K3b, one CTA per round, is
        the same function);
   4. K3c window_combine: each MSM's windows combine MSB-first, c doublings
-     and one add per round (the Horner chain), one thread per MSM in one
-     launch.
+     and one add per round (the Horner chain), a group of 8 lanes per MSM
+     in one launch.
 
 The rounds, and the MSMs, are independent until step 4, so batching them
 changes no coordinate: each round's window is the JAX package's per-round

@@ -7,8 +7,8 @@ builds the CUDA kernels from barretenberg_tpu_torch/csrc with nvcc (one
 process per source, all at once), holds each against its plain PyTorch
 version on the card (exact equality: every value is a canonical field
 element) - K1 scan (prefix and suffix products and the affine recurrence,
-at ragged sizes, around its 1,024-element tiles and at every size the
-prove scans), K1 dot and lincomb (1 row or term, the prove's 5 rows and 9
+at ragged sizes, around a warp's 32 and a CTA's 1,024 elements and at
+every size the prove scans, each scan 3 times back to back), K1 dot and lincomb (1 row or term, the prove's 5 rows and 9
 terms and one more than a launch takes, at 1, 3, 2^11, n and 3n lanes,
 with zero, p - 1, broadcast and strided operands), the MSM bucket kernels, the window combine and the lane-wise
 point chains (K3d scalar_mul_bits at 16, 3 x 16, 3 x 2048 and 5 x 2048
@@ -25,7 +25,8 @@ and on 3 x 2^16 scalars at c = 8, 10 and 13, the rounds-batched MSM of
 the 2^20 prove (c = 13): K3b-wide over its rounds as bucket sets and K3b
 over 1 and 3 vectors' rounds at 2^16 and 2^20 points (both timed there,
 K3b-wide the faster, on the path), K3c over 1, 2 and 3 chains, also
-against the host oracle -
+against the host oracle, and over 1, 2, 3 and 33 chains of edge windows at
+c = 8, 10 and 13 -
 holds K2b fft_pass (every FFT's passes) against its plain version for all
 seven public transforms at n = 2^4, 2^10 and each size the prove runs (2^16,
 2^17, 2^18) with the default and a small tile, and the whole 2^18 transform
@@ -611,11 +612,22 @@ def scan_bound(n: int, affine: bool):
 
 def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list) -> None:
     """K1 scan against its plain version (the Hillis-Steele loops) over Fr
-    and Fq at each of `sizes` lanes: the prefix and suffix products of
-    random lanes with a zero in the middle, the affine recurrence with a
-    broadcast and with a full m, a 4-D batch scanned along a middle dim and
-    strided views; Fr's batch inversion also against Python's pow.
-    Timed over Fr at `time_sizes` (the first is the record's shape)."""
+    and Fq at each of `sizes` lanes, each plan scan_plan picks (one warp,
+    one CTA, chained tiles of 512 or 1,024): the prefix and suffix products
+    of random lanes with a zero in the middle, the affine recurrence with a
+    broadcast and with a full m, each run 3 times back to back on one stream
+    (a look-back state the kernel failed to leave zero shows as a mismatch
+    of the second or third), a 4-D batch scanned along a middle dim and
+    strided views; Fr's batch inversion also against Python's pow. Timed
+    over Fr at `time_sizes` (the first is the record's shape), with the
+    profiler's device ms at the first."""
+
+    def thrice(fn, want, what: str) -> None:
+        outs = [fn() for _ in range(3)]
+        for k, got in enumerate(outs):
+            if not torch.equal(got, want):
+                fail("kernels", f"field scan ({what}) disagrees with its plain version on launch {k + 1} of 3")
+
     for params, get in ((FR_PARAMS, get_fr), (FQ_PARAMS, get_fq)):
         field = get(device)
         for n in sizes:
@@ -624,15 +636,14 @@ def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list
                 a[:, n // 2] = 0
             for rev in (False, True):
                 for x in (a, a[:, ::2]):
-                    got = field.prefix_product(x, 1, rev)
-                    if not torch.equal(got, field_kernels.plain_prefix_product(params, x, 1, rev)):
-                        fail("kernels", f"field scan (product, reverse={rev}) over {params.name} at {x.shape[1]} lanes disagrees with its plain version")
+                    thrice(lambda: field.prefix_product(x, 1, rev),
+                           field_kernels.plain_prefix_product(params, x, 1, rev),
+                           f"product, reverse={rev}, over {params.name} at {x.shape[1]} lanes")
             b = rand_lanes((n,), device, rng)
             for m in (rand_lanes((1,), device, rng), rand_lanes((n,), device, rng)):
-                got = field.affine_scan(m, b, 1)
-                want = field_kernels.plain_affine_scan(params, *torch.broadcast_tensors(m, b), 1)
-                if not torch.equal(got, want):
-                    fail("kernels", f"field scan (affine, m of {m.shape[1]} lanes) over {params.name} at {n} lanes disagrees with its plain version")
+                thrice(lambda: field.affine_scan(m, b, 1),
+                       field_kernels.plain_affine_scan(params, *torch.broadcast_tensors(m, b), 1),
+                       f"affine, m of {m.shape[1]} lanes, over {params.name} at {n} lanes")
         rows = rand_lanes((5, 3, 7), device, rng)  # (18, 5, 3, 7) scanned along dim 2: 35 rows of 3
         for rev in (False, True):
             if not torch.equal(field.prefix_product(rows, 2, rev),
@@ -643,6 +654,7 @@ def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list
     if fr.decode(fr.batch_invert(fr.encode(vals))) != [pow(v, -1, fr.p) for v in vals]:
         fail("kernels", "batch_invert through the field scan disagrees with Python's pow")
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 132
     for affine in (False, True):
         by_n = {}
         for n in time_sizes:
@@ -656,7 +668,10 @@ def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list
                     lambda: field_kernels.plain_prefix_product(FR_PARAMS, b, 1))
             b_ms, b_by = scan_bound(n, affine)
             by_n[n] = {"max_abs_err": max_abs_err([run()], [plain()]), "ms": time_ms(run, device, 20),
-                       "plain_ms": time_ms(plain, device, 2), "bound_ms": b_ms, "bound_by": b_by}
+                       "plain_ms": time_ms(plain, device, 2), "bound_ms": b_ms, "bound_by": b_by,
+                       "plan": list(field_kernels.scan_plan(1, n, sms))}
+            if n == time_sizes[0]:
+                by_n[n]["device_ms"] = device_ms(run, device, "field_scan_kernel")
         main = by_n[time_sizes[0]]
         records.append({
             "name": "field_scan_affine" if affine else "field_scan", "module": "field", "op": "scan",
@@ -664,8 +679,8 @@ def check_field_scan(device, sizes: tuple, time_sizes: tuple, rng, records: list
             "replaces": REPLACES["field_scan"], "shape": [18, time_sizes[0]],
             "mode": "affine recurrence, broadcast m" if affine else "prefix product",
             "max_abs_err": max(v["max_abs_err"] for v in by_n.values()),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-            "by_lanes": by_n,
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "plan")},
+            "library_ms": None, "by_lanes": by_n,
         })
 
 
@@ -1087,30 +1102,64 @@ def edge_windows(device, rounds: int, c: int, rng) -> dict:
     return cases
 
 
-def check_window_combine(device, win: JacobianPoints, c: int, rng, records: list) -> None:
-    """K3c against its plain version (exact) on the main path's windows and
-    on the edge cases, and against the host oracle sum_r 2^(c r) W_r."""
-    rounds = win.inf.shape[0]
-    cases = edge_windows(device, rounds, c, rng)
-    cases["msm_windows"] = (win, jacobian_to_host(win))
-    for case, (w, hw) in cases.items():
-        got, want = msm_kernels.window_combine(w, c), msm_kernels.plain_window_combine(w, c)
-        err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
-        if err:
-            fail("kernels", f"window_combine disagrees with its plain version ({case})")
-        if jacobian_to_host(got) != [horner_oracle(hw, c)]:
-            fail("kernels", f"window_combine disagrees with the host oracle ({case})")
+def combine_record(win: JacobianPoints, c: int, sets: int, device, err: int, **extra) -> dict:
+    """K3c's timing record over `sets` chains of win's rounds: ms per call
+    (CUDA events) and per point operation, the profiler's device ms, its
+    plain version's ms and its bound (one chain's products)."""
+    rounds = win.inf.shape[0] // sets
     steps = rounds * (c + 1)
-    b_ms, b_by = bound((rounds + 1) * JAC_BYTES,
-                       rounds * (c * POINT_MULS["dbl"] + POINT_MULS["add"]) * IMAD_PER_FIELD_MUL)
-    ms = time_ms(lambda: msm_kernels.window_combine(win, c), device, 20)
-    records.append({
+    b_ms, b_by = bound((sets * rounds + sets) * JAC_BYTES,
+                       sets * rounds * (c * POINT_MULS["dbl"] + POINT_MULS["add"]) * IMAD_PER_FIELD_MUL)
+    run = lambda: msm_kernels.window_combine(win, c, sets)  # noqa: E731
+    ms = time_ms(run, device, 20)
+    return {
         "name": "window_combine", "module": "msm", "op": "window_combine", "route": "cuda",
         "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["window_combine"],
-        "shape": [18, rounds], "c": c, "steps": steps, "max_abs_err": err, "ms": ms, "ms_per_step": ms / steps,
-        "plain_ms": time_ms(lambda: msm_kernels.plain_window_combine(win, c), device, 1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    })
+        "shape": [18, sets * rounds], "sets": sets, "c": c, "steps": steps, "max_abs_err": err,
+        "ms": ms, "ms_per_point_op": ms / steps, "device_ms": device_ms(run, device, "window_combine_kernel"),
+        "plain_ms": time_ms(lambda: msm_kernels.plain_window_combine(win, c, sets), device, 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra,
+    }
+
+
+def check_window_combine(device, win: JacobianPoints, c: int, records: list) -> None:
+    """K3c against its plain version (exact) and the host oracle sum_r 2^(c
+    r) W_r on the main path's MSM windows, timed there (its edge cases:
+    check_combine_chains)."""
+    got, want = msm_kernels.window_combine(win, c), msm_kernels.plain_window_combine(win, c)
+    err = max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any()))
+    if err:
+        fail("kernels", "window_combine disagrees with its plain version on the MSM's windows")
+    if jacobian_to_host(got) != [horner_oracle(jacobian_to_host(win), c)]:
+        fail("kernels", "window_combine disagrees with the host oracle on the MSM's windows")
+    records.append(combine_record(win, c, 1, device, err))
+
+
+def check_combine_chains(device, windows: tuple, chains: tuple, rng) -> None:
+    """K3c over B chains in one launch (B in `chains`; 33 is nine one-warp
+    CTAs of four groups of 8 lanes) at each c of `windows`, chain s taking
+    edge case s % 5 - edge_windows' four (every window at infinity, only the
+    lowest live, a window equal to the running sum, its negation) and
+    random windows - exactly against its plain version (one call over the
+    widest B) and each chain against the host oracle."""
+    for c in windows:
+        rounds = msm_kernels.digit_rounds(c)
+        cases = list(edge_windows(device, rounds, c, rng).values())
+        base = fixed_base_mul(rand_values(rounds, FR_MODULUS, rng), device)
+        cases.append((base, jacobian_to_host(base)))
+        # chains are lanes of the plain version: the widest call's chains
+        # hold every narrower call's, which are its first ones
+        picks = [cases[s % len(cases)] for s in range(max(chains))]
+        w_all = JacobianPoints(*(torch.cat([p[0][i] for p in picks], dim=-1).contiguous() for i in range(4)))
+        want_all = msm_kernels.plain_window_combine(w_all, c, len(picks))
+        host = [horner_oracle(p[1], c) for p in picks]
+        for sets in chains:
+            w = JacobianPoints(*(t[..., : sets * rounds].contiguous() for t in w_all))
+            got, want = msm_kernels.window_combine(w, c, sets), JacobianPoints(*(t[..., :sets] for t in want_all))
+            if max(max_abs_err(got[:3], want[:3]), int(got.inf.ne(want.inf).any())):
+                fail("kernels", f"window_combine over {sets} chains at c = {c} disagrees with its plain version")
+            if jacobian_to_host(got) != host[:sets]:
+                fail("kernels", f"window_combine over {sets} chains at c = {c} disagrees with the host oracle")
 
 
 def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> None:
@@ -1172,7 +1221,7 @@ def check_msm_kernels(device, log2n: int, edge_m: int, rng, records: list) -> No
         "plain_ms": time_ms(lambda: msm_kernels.plain_bucket_reduce(got, nb), device, 1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
-    check_window_combine(device, win, c, rng, records)
+    check_window_combine(device, win, c, records)
 
 
 def table_rows_work(pinf: torch.Tensor, rows: int, c: int) -> int:
@@ -1549,7 +1598,7 @@ def check_rounds_msm(device, log2n_check: int, log2n_path: int, c: int, rng, rec
 
 
 def check_combine_sets(device, win: JacobianPoints, c: int, records: list) -> None:
-    """K3c over B = 1, 2, 3 chains (one thread each, one launch) of a
+    """K3c over B = 1, 2, 3 chains (a group of 8 lanes each, one launch) of a
     commit call's windows (18, B x R) against its plain version (exact),
     and each chain against the host oracle sum_r 2^(c r) W_r."""
     rounds = msm_kernels.digit_rounds(c)
@@ -1562,17 +1611,7 @@ def check_combine_sets(device, win: JacobianPoints, c: int, records: list) -> No
             fail("kernels", f"window_combine over {sets} chains disagrees with its plain version")
         if jacobian_to_host(got) != [horner_oracle(host[s * rounds : (s + 1) * rounds], c) for s in range(sets)]:
             fail("kernels", f"window_combine over {sets} chains disagrees with the host oracle")
-        b_ms, b_by = bound((sets * rounds + sets) * JAC_BYTES,
-                           sets * rounds * (c * POINT_MULS["dbl"] + POINT_MULS["add"]) * IMAD_PER_FIELD_MUL)
-        ms = time_ms(lambda: msm_kernels.window_combine(w, c, sets), device, 20)
-        records.append({
-            "name": "window_combine", "module": "msm", "op": "window_combine", "route": "cuda",
-            "source": "barretenberg_tpu_torch/csrc/msm_kernels.cu", "replaces": REPLACES["window_combine"],
-            "shape": [18, sets * rounds], "sets": sets, "c": c, "steps": rounds * (c + 1), "max_abs_err": err,
-            "ms": ms, "ms_per_step": ms / (rounds * (c + 1)),
-            "plain_ms": time_ms(lambda: msm_kernels.plain_window_combine(w, c, sets), device, 1),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+        records.append(combine_record(w, c, sets, device, err))
 
 
 def check_fft_pass_large(device, sizes: tuple, rng, records: list) -> None:
@@ -2631,7 +2670,7 @@ def main() -> int:
     # results, the 2^11 and 2^16 tables' 16 x 2^11 and 13 x 2^16 points,
     # the grand product, powers tables, Kate divisions and domain tables at
     # n / 2 to 4n), timed at 2^16 and beside it
-    scan_sizes = (1, 2, 3, 5, 17, 64, 1023, 1024, 1025, 2048 + 7)
+    scan_sizes = (1, 2, 3, 5, 17, 31, 32, 33, 64, 1023, 1024, 1025, 2048 + 7)
     if not rehearsal:
         scan_sizes += (1 << 11, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 16 << 11, 13 << 16)
     check_field_scan(device, scan_sizes, (64, 1025) if rehearsal else
@@ -2652,6 +2691,8 @@ def main() -> int:
     smb_shapes = ((16, 1), (16, 3), (small, 3), (small, 5))
     check_point_chains(device, smb_shapes, (16, min(lanes, 1 << log2n)), rng, records)
     check_msm_kernels(device, log2n, 8 * MSM_BLOCK if rehearsal else 16 * MSM_BLOCK, rng, records)
+    # K3c's groups: 1-3 chains (one warp) and 33 (nine CTAs) at c = 8, 10, 13
+    check_combine_chains(device, (4,) if rehearsal else (8, 10, 13), (1, 2, 5) if rehearsal else (1, 2, 3, 33), rng)
     check_precomputed(device, 5 if rehearsal else 11, log2n, () if rehearsal else (13,), rng, records)
     check_glv_digits(device, 6 if rehearsal else log2n, rng, records)
     # the 2^20 prove's rounds-batched MSM (c = 13; K3b-wide and K3b, K3c at

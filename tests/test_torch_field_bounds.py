@@ -84,3 +84,25 @@ def test_fe_mul_model_is_the_montgomery_product(field):
             r = sum(v << (BITS * k) for k, v in enumerate(out))
             assert r < 2 * p
             assert r % p == a * b * rinv % p
+
+
+def _section(src: str, start: str, end: str) -> str:
+    return src[src.index(start) : src.index(end, src.index(start))]
+
+
+@pytest.mark.parametrize("source, start, end", [
+    ("msm_kernels.cu", "// K3c\n", "// K4\n"),
+    ("field_kernels.cu", "// scan\n", "// dot\n"),
+])
+def test_redesigned_kernels_add_no_64_bit_accumulator(source, start, end):
+    """K3c's cooperative point operations and K1 scan's tiles compute every
+    product with fe_mul and every sum with fe_add / fe_sub, so the bound
+    above is the only 64-bit column bound they rest on: their sections of
+    the source declare no 64-bit word of their own."""
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "barretenberg_tpu_torch", "csrc", source)
+    with open(path) as f:
+        body = _section(f.read(), start, end)
+    assert "fe_mul" in body
+    assert "uint64_t" not in body and "long long" not in body

@@ -3,11 +3,13 @@
 (``hillis_scan`` / ``affine_scan`` over its ``Field.mont_mul`` / ``add``,
 run under ``jax.disable_jit()``: no XLA compile), limb for limb (tolerance
 0), on the CPU; and a plain-torch model of the CUDA kernel's decomposition
-(``csrc/field_kernels.cu`` ``field_scan_kernel``: tiles of threads x items,
-a serial run per thread, shuffle scans across warps, the warp totals on one
-thread, decoupled look-back over a window of earlier tiles) at small tile,
-warp and window sizes against the Hillis-Steele loops, so that an index or
-boundary fault shows before the card."""
+(``csrc/field_kernels.cu`` ``field_scan_kernel``: the plan ``scan_plan``
+picks - one warp, one CTA, or tiles of threads x items chained by a
+decoupled look-back whose lanes fold several earlier tiles - a serial run
+per thread, shuffle scans across each warp and across the warp totals, and
+the state the last CTA leaves zero) at small tile, warp and window sizes
+against the Hillis-Steele loops, so that an index or boundary fault shows
+before the card; and the plans taken at the card's sizes."""
 
 import jax
 import numpy as np
@@ -99,66 +101,113 @@ def _affine_ops(lf):
     return combine, (one, torch.zeros_like(one))
 
 
-def kernel_model(xs, combine, ident, threads, items, warp, window, lag):
-    """The kernel's grouping of the combines over scan positions 0..n-1 (xs:
-    one tuple of (18, 1) tensors each), with tiles of threads x items
-    elements, warps of `warp` threads and look-back windows of `window`
-    tiles. Tile t sees the inclusive prefix of tile k < t published only if
-    t - k >= lag (tile 0's always), else its total - so the look-back runs
-    through several windows and stops at the nearest inclusive prefix."""
-    n, tile = len(xs), threads * items
-    totals, inclusive, out = {}, {}, [None] * n
-    for t in range(-(-n // tile)):
-        x = [xs[t * tile + e] if t * tile + e < n else ident for e in range(tile)]
+def _kogge_stone(vals, combine, width, levels_to):
+    """Each `width`-lane group's inclusive scan by shuffles-up of d < levels_to."""
+    d = 1
+    while d < levels_to:
+        vals = [combine(vals[i - d], vals[i]) if i % width >= d else vals[i] for i in range(len(vals))]
+        d *= 2
+    return vals
+
+
+def _look_back(t, inclusive, totals, combine, ident, warp, look_items, lag):
+    """scan_look_back: what precedes tile t > 0 of a row. Lane L folds the
+    `per` tiles below look - L per (nearest first, stopping at a visible
+    inclusive prefix or the row's start); lanes past the first that stopped
+    take the identity; the lanes fold by shuffles-down of d <= first. Tile
+    k's inclusive prefix is visible to tile t only if t - k >= lag (tile
+    0's always), so a look-back may run over several windows."""
+    excl, look, steps = ident, t - 1, 0
+    while True:
+        steps += 1
+        per = min((look + warp) // warp, look_items)
+        v, stop = [], []
+        for lane in range(warp):
+            acc, st = ident, False
+            for j in range(per):
+                k = look - lane * per - j
+                if k < 0:
+                    st = True
+                    break
+                visible = k == 0 or t - k >= lag
+                acc = combine(inclusive[k] if visible else totals[k], acc)
+                if visible:
+                    st = True
+                    break
+            v.append(acc)
+            stop.append(st)
+        first = stop.index(True) if any(stop) else warp - 1
+        v = [x if lane <= first else ident for lane, x in enumerate(v)]
+        d = 1
+        while d <= first:
+            v = [combine(v[lane + d], v[lane]) if lane + d < warp else v[lane] for lane in range(warp)]
+            d *= 2
+        excl = combine(v[0], excl)
+        if any(stop):
+            return excl, steps
+        look -= warp * per
+
+
+def kernel_model(xs, combine, ident, plan, warp, look_items, lag, state):
+    """field_scan_kernel's grouping of the combines over scan positions
+    0..n-1 of one row (xs: one tuple of (18, 1) tensors each) for a plan
+    (threads, items, tiles) of scan_plan: tiles of threads x items elements,
+    warps of `warp` lanes, look-back lanes of `look_items` tiles. `state` is
+    the stream's cached state buffer (next tile, CTAs done, a flag a tile),
+    shared by the launches in stream order: every word a launch uses must
+    be zero when it starts, and the last CTA clears them. Returns the
+    outputs and the most look-back steps a tile took."""
+    n = len(xs)
+    threads, items, tiles = plan
+    tile, nwarps = threads * items, threads // warp
+    if tiles > 1:
+        assert len(state) >= 2 + tiles and not any(state[: 2 + tiles])
+    totals, inclusive, out, steps = {}, {}, [None] * n, 0
+    for t in range(tiles):
+        state[0] += tiles > 1
+        first = t * tile
+        x = [xs[first + e] if first + e < n else ident for e in range(tile)]
         runs = []
         for th in range(threads):  # each thread's run, inclusive
             loc = [x[th * items]]
             for j in range(1, items):
                 loc.append(combine(loc[-1], x[th * items + j]))
             runs.append(loc)
-        inc = [loc[-1] for loc in runs]
-        d = 1
-        while d < warp:  # shuffle-up scan within each warp
-            inc = [combine(inc[th - d], inc[th]) if th % warp >= d else inc[th] for th in range(threads)]
-            d *= 2
+        live = -(-(n - first) // items)
+        levels_to = live if nwarps == 1 and live < warp else warp
+        inc = _kogge_stone([loc[-1] for loc in runs], combine, warp, levels_to)
         lane_ex = [ident if th % warp == 0 else inc[th - 1] for th in range(threads)]
-        warp_ex, acc = [], None  # one thread over the warp totals
-        for w in range(threads // warp):
-            warp_ex.append(acc if acc is not None else ident)
-            wt = inc[w * warp + warp - 1]
-            acc = wt if acc is None else combine(acc, wt)
-        totals[t] = acc
-        excl, look = ident, t - 1
-        while t > 0:
-            ks = [look - lane for lane in range(window)]
-            is_inc = [k < 0 or k == 0 or t - k >= lag for k in ks]
-            stop = is_inc.index(True) if any(is_inc) else window - 1
-            v = [(inclusive[k] if is_inc[lane] else totals[k]) if k >= 0 and lane <= stop else ident
-                 for lane, k in enumerate(ks)]
-            d = 1
-            while d < window:  # shuffle-down fold: lane l holds a later tile than lane l + 1
-                v = [combine(v[lane + d], v[lane]) if lane + d < window else v[lane] for lane in range(window)]
-                d *= 2
-            excl = combine(v[0], excl)
-            if any(is_inc):
-                break
-            look -= window
-        inclusive[t] = totals[t] if t == 0 else combine(excl, totals[t])
+        wt = _kogge_stone([inc[w * warp + warp - 1] for w in range(nwarps)], combine, warp, nwarps)
+        wex = [ident] + wt[:-1]
+        excl = ident
+        if tiles > 1:
+            totals[t] = wt[-1]
+            state[2 + t] = 1
+            if t > 0:
+                excl, k = _look_back(t, inclusive, totals, combine, ident, warp, look_items, lag)
+                steps = max(steps, k)
+            inclusive[t] = totals[t] if t == 0 else combine(excl, totals[t])
+            state[2 + t] = 2
         for th in range(threads):
-            pre = combine(combine(excl, warp_ex[th // warp]), lane_ex[th])
+            pre = combine(combine(excl, wex[th // warp]), lane_ex[th])
             for j in range(items):
-                pos = t * tile + th * items + j
+                pos = first + th * items + j
                 if pos < n:
                     out[pos] = combine(pre, runs[th][j])
-    return out
+        if tiles > 1:
+            state[1] += 1
+            if state[1] == tiles:  # the last CTA clears the words it used
+                state[: 2 + tiles] = [0] * (2 + tiles)
+    return out, steps
 
 
-@pytest.mark.parametrize("lag", [1, 3])
-@pytest.mark.parametrize("n", [1, 5, 8, 9, 13, 29])
-@pytest.mark.parametrize("mode", ["prefix", "suffix", "affine"])
-def test_kernel_model_matches_hillis(mode, n, lag):
-    """Tiles of 8 (4 threads x 2 items, warps of 2, windows of 2 tiles):
-    n below a tile, one tile, a tile + 1, ragged and four tiles deep."""
+# reduced sizes: warps of 2 lanes, CTAs of 4 threads, 1-2 items a thread,
+# look-back lanes of 2 tiles (a window of 4 tiles)
+SMALL = {"threads": 4, "warp": 2, "max_items": 2}
+SMALL_LOOK = 2
+
+
+def _model_case(mode, n, sms, lag):
     lf = field_kernels.limb_field(FR_PARAMS)
     f = tfr("cpu")
     a = f.encode(_values(n, 90 + n, zero_at=n // 2))
@@ -172,19 +221,93 @@ def test_kernel_model_matches_hillis(mode, n, lag):
         order = range(n - 1, -1, -1) if mode == "suffix" else range(n)
         xs = [(a[:, i : i + 1],) for i in order]
         want = scans.hillis_scan(lf.mont_mul, a, 1, reverse=mode == "suffix")
-    got = kernel_model(xs, combine, ident, threads=4, items=2, warp=2, window=2, lag=lag)
-    if mode == "suffix":
-        got = got[::-1]
-    assert torch.equal(torch.cat([g[-1] for g in got], dim=1), want)
+    plan = field_kernels.scan_plan(1, n, sms, **SMALL)
+    state = [0] * 64
+    for launch in range(2):  # the same scan again on the state the first left
+        got, steps = kernel_model(xs, combine, ident, plan, SMALL["warp"], SMALL_LOOK, lag, state)
+        if mode == "suffix":
+            got = got[::-1]
+        assert torch.equal(torch.cat([g[-1] for g in got], dim=1), want), launch
+        assert not any(state)
+    return plan, steps
+
+
+@pytest.mark.parametrize("lag", [1, 3])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 13, 29])
+@pytest.mark.parametrize("mode", ["prefix", "suffix", "affine"])
+def test_kernel_model_matches_hillis(mode, n, lag):
+    """At reduced sizes (warps of 2, CTAs of 4 threads of 1-2 items, 8
+    SMs): n in one warp, in one CTA (with its tile filled), past it in
+    tiles of 4 (all fit on the SMs at once) and of 8."""
+    plan, _ = _model_case(mode, n, 8, lag)
+    assert plan[2] == 1 if n <= 8 else plan[1] == (1 if n <= 32 else 2)
+
+
+@pytest.mark.parametrize("lag", [1, 2, 5])
+@pytest.mark.parametrize("n, sms", [(33, 64), (70, 64), (70, 8)])
+@pytest.mark.parametrize("mode", ["prefix", "suffix", "affine"])
+def test_kernel_model_look_back_windows(mode, n, sms, lag):
+    """Rows of 9 and 18 tiles of 4 (on 64 SMs) and of 9 tiles of 8 (on 8
+    SMs, where 18 tiles of 4 do not fit), so that a look-back folds several
+    lanes of 2 tiles and, while the nearest inclusive prefixes are not yet
+    visible, runs over more than one window."""
+    plan, steps = _model_case(mode, n, sms, lag)
+    items = 1 if sms == 64 else 2
+    assert plan == (4, items, -(-n // (4 * items)))
+    if lag == 1:
+        assert steps == 1
+    if n == 70 and sms == 64 and lag == 5:
+        assert steps >= 2
+
+
+def test_kernel_model_state_across_launches():
+    """Affine scans of 9, 18, 3 and 9 tiles in stream order on one state
+    buffer: each finds every word it uses zero (its tiles' totals and
+    prefixes live apart, so a longer launch never reads an earlier one's
+    data as flags) and leaves them zero."""
+    lf = field_kernels.limb_field(FR_PARAMS)
+    f = tfr("cpu")
+    combine, ident = _affine_ops(lf)
+    state = [0] * 64
+    for n in (33, 70, 9, 33):
+        a, b = f.encode(_values(n, 110 + n)), f.encode(_values(n, 120 + n))
+        plan = field_kernels.scan_plan(1, n, 64, **SMALL)
+        got, _ = kernel_model([(a[:, i : i + 1], b[:, i : i + 1]) for i in range(n)], combine, ident, plan,
+                              SMALL["warp"], SMALL_LOOK, 2, state)
+        assert torch.equal(torch.cat([g[-1] for g in got], dim=1), scans.affine_scan(lf.mont_mul, lf.add, a, b, 1))
+        assert not any(state)
+
+
+@pytest.mark.parametrize("n, plan", [
+    (1, (32, 1, 1)), (3, (32, 1, 1)), (31, (32, 1, 1)), (32, (32, 1, 1)), (33, (128, 1, 1)),
+    (1023, (128, 8, 1)), (1024, (128, 8, 1)), (1025, (128, 4, 3)), (1 << 16, (128, 4, 128)),
+    (1 << 18, (128, 8, 256)), (13 << 16, (128, 8, 832)),
+])
+def test_scan_plan(n, plan):
+    """The plan K1 scan takes on a 132-SM H100 for one row: one warp up to 32
+    elements, one CTA up to 1,024, then tiles of 512 while they fit on the
+    SMs at once (2^16: 128 tiles) and of 1,024 beyond."""
+    assert field_kernels.scan_plan(1, n, 132) == plan
+    assert field_kernels.scan_scratch_words(1, plan[2]) == (2 + plan[2], 36 * plan[2])
+
+
+def test_scan_plan_counts_rows():
+    """Rows share the card: 3 rows of 2^15 take tiles of 512 (192 > 132
+    tiles: no), so 1,024; 2 rows of 2^15 fit (128 tiles of 512)."""
+    assert field_kernels.scan_plan(3, 1 << 15, 132) == (128, 8, 32)
+    assert field_kernels.scan_plan(2, 1 << 15, 132) == (128, 4, 64)
+    assert field_kernels.scan_plan(35, 3, 132) == (32, 1, 1)
 
 
 def test_kernel_constants_match_the_source():
-    """The wrapper's tile and state size are the kernel's."""
+    """The wrapper's tile sizes and state layout are the kernel's."""
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(field_kernels.__file__), "..", "csrc", "field_kernels.cu")).read()
-    threads = int(re.search(r"#define SCAN_THREADS (\d+)", src).group(1))
-    items = int(re.search(r"#define SCAN_ITEMS (\d+)", src).group(1))
-    assert threads * items == field_kernels.SCAN_TILE
-    assert field_kernels.SCAN_WORDS_PER_TILE == 1 + 4 * 9
+    define = lambda name: int(re.search(rf"#define {name} (\d+)", src).group(1))  # noqa: E731
+    assert define("SCAN_THREADS") == field_kernels.SCAN_THREADS
+    assert define("SCAN_MAX_ITEMS") == field_kernels.SCAN_MAX_ITEMS
+    assert define("SCAN_LOOK_ITEMS") == 4
+    assert field_kernels.SCAN_DATA_WORDS_PER_TILE == 4 * 9
+    assert "cudaMemsetAsync" not in src  # the state is left zero by the kernel, not cleared per call

@@ -59,7 +59,7 @@ KERNEL_NAMES = {
     "msm.bucket_reduce": "bucket_reduce_kernel", "msm.window_combine": "window_combine_kernel",
     "point.scalar_mul_bits": "scalar_mul_bits_kernel", "point.fixed_base": "fixed_base_kernel",
     "point.table_rows": "table_rows_kernel", "msm.bucket_reduce_wide": "bucket_reduce_wide_kernel",
-    "msm.glv_digits": "glv_digits_kernel",
+    "msm.glv_digits": "glv_digits_kernel", "point.windowed_walk": "windowed_walk_kernel",
 }
 
 
